@@ -5,18 +5,36 @@ Phases, each fatal on failure:
 
 1. versions of the card, torch, CUDA and nvcc, and the card's name and
    power limit as ``nvidia-smi`` reports them;
-2. build the CUDA GLR sweep kernel from ``origin_tpu_torch/csrc``;
-3. hold the kernel against its plain torch version on the card at
-   3681 x 100 x 200 for the 3- and 20-profile dictionaries, and time both
-   with CUDA events;
-4. steps 01-07 on the synthetic minicube (tests/make_minicube.py) with
+2. build every CUDA source of ``origin_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all started together) and print each one's ptxas register and
+   spill lines;
+3. hold the GLR sweep kernel against its plain torch version on the card
+   at 3681 x 100 x 200 for the 3- and 20-profile dictionaries, and time
+   both with CUDA events;
+4. steps 01-07 on the synthetic minicube (tools_torch/synthetic.py) with
    ``device="cuda"``;
-5. steps 01-07 on the synthetic 3681 x 100 x 200 field of
-   tools/bench_e2e.py (seed 7), twice (cold, then warm), with per-step
-   walls and peak device memory; the sweep's launch counter must move.
+5. steps 01-07 on the synthetic 3681 x 100 x 200 field
+   (tools_torch/synthetic.make_field, seed 7), twice (cold, then warm),
+   with per-step walls and peak device memory; the sweep's launch counter
+   must move;
+a. the spatial FSF kernel against its plain version at 3681 x 100 x 200,
+   at ``highest`` and in bf16x3, with two weighted fields on a 256-channel
+   cut, and on a 300 x 300 x 256 cut; CUDA-event times of the kernel, the
+   plain version (at ``highest`` the cuBLAS chain the engine runs there)
+   and one depthwise ``conv2d`` call (the library yardstick);
+b. the bf16x3 sweep against its plain version (K=3 and K=20);
+c. the spaxel-major sweeps ``matched_filter_spectral`` and
+   ``banded_matmul_spectral``, each called once through its entry point,
+   against their plain versions at 3681 x 100 x 200;
+d. steps 01-07 of the minicube and of the field with
+   ``ORIGIN_TPU_PRECISION=bf16x3``: the spatial and bf16x3 sweep counters
+   must move; the minicube's Cat0/Cat1 equal the ``highest`` run's and
+   its correl threshold is within 1e-3 of it; the field's Cat0/Cat1 are
+   within one line of the ``highest`` run's and its correl threshold
+   within 0.005.
 
-In phases 4 and 5 steps 05-07 are then re-run with the plain sweep in
-place of the kernel, and the two catalogs must agree row for row.  The
+In phases 4, 5 and d, steps 05-07 are then re-run with the plain versions
+in place of the kernels, and the two catalogs must agree row for row.  The
 std threshold, which step 04 does not touch, is held within 0.02 of the
 JAX package's.  What step 04 decides is held to a reference that runs the
 same algorithm to convergence, because the JAX package stops its power
@@ -26,15 +44,18 @@ threshold within 1e-3 of the JAX package run with its whole power budget;
 on the field, the correl threshold within 0.02 and Cat0/Cat1 within one
 line of the float64 ARPACK oracle of step 04 (tools_torch/field_step04.py).
 
-The next-to-last line of stdout is a JSON record of the kernels, the last
-``{"ok": true, "device": {...}}``.  Details go to
+Every launch counter is set to 0 just before a main-path run and read
+just after it: phase 5's cold run for the float32 sweep, phase d's field
+run for the spatial kernel and the bf16x3 sweep, phase c's entry calls for
+the spaxel-major sweeps.  The next-to-last line of stdout is a JSON record
+of the kernels, the line before it the card's name and power limit, the
+last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
 
 Usage: python3 chip_smoke.py
 """
 
 import gc
-import importlib.util
 import json
 import os
 import subprocess
@@ -59,6 +80,42 @@ THRESH_TOL = 0.02
 COUNT_TOL = 1
 SWEEP_ATOL = SWEEP_RTOL = 1e-5
 TIE_TOL = 1e-5
+# the spatial kernel against its plain version, values of order 1: float32
+# sums in another order; in bf16x3 a one-ulp difference of an intermediate
+# can also move a split's low half by one bf16 step (the largest reading on
+# an H100 is 4.65e-6, on the field)
+SPATIAL_ATOL = dict(highest=1e-5, bf16x3=1e-5)
+# bf16x3 and highest differ by about as much at their largest as the kernel
+# and its plain version may, so the split is shown by RMS distances: the
+# bf16x3 kernel lies at least SPLIT_SEPARATION times the highest kernel's
+# float32 order noise (its RMS distance from its plain version) away from
+# the highest kernel, and at least SPLIT_NEARER times nearer its own plain
+# version than the highest kernel.  A one-ulp change upstream moves a split
+# by a bf16 step, so the bf16x3 kernel and its plain version part by about
+# half the bf16x3 - highest gap (ratio 2.26 on the field, H100)
+SPLIT_SEPARATION = 4.0
+SPLIT_NEARER = 1.5
+# bf16x3 against highest (phase d)
+BF16X3_MINI_THRESH_TOL = 1e-3
+BF16X3_FIELD_THRESH_TOL = 0.005
+
+# the card's peak rates (NVIDIA H100 SXM data sheet, dense)
+PEAK_FP32 = 67e12       # FLOP/s on the CUDA cores
+PEAK_BF16 = 989e12      # FLOP/s on the tensor cores
+PEAK_BYTES = 3.35e12    # HBM bytes/s
+
+KERNEL_SOURCES = dict(
+    toeplitz_sweep=("origin_tpu_torch/csrc/toeplitz_sweep.cu",
+                    "origin_tpu/ops/pallas_sweep.py:42"),
+    toeplitz_sweep_bf16x3=("origin_tpu_torch/csrc/toeplitz_sweep.cu",
+                           "origin_tpu/ops/pallas_sweep.py:42"),
+    spatial_fsf=("origin_tpu_torch/csrc/spatial_fsf.cu",
+                 "origin_tpu/ops/pallas_spatial.py:44"),
+    matched_filter_spectral=("origin_tpu_torch/csrc/toeplitz_sweep.cu",
+                             "origin_tpu/ops/pallas_kernels.py:49"),
+    banded_matmul_spectral=("origin_tpu_torch/csrc/toeplitz_sweep.cu",
+                            "origin_tpu/ops/pallas_kernels.py:157"),
+)
 
 
 def log(*args):
@@ -71,13 +128,6 @@ def check(cond, what):
     log(f"  ok: {what}")
 
 
-def _load_file(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def sync_wall(fn):
     """Host wall of ``fn()`` with the device drained on both sides."""
     import torch
@@ -87,6 +137,52 @@ def sync_wall(fn):
     fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def _counters():
+    """(name, owner, attribute) of every kernel's launch counter."""
+    from origin_tpu_torch.ops import kernels
+    from origin_tpu_torch.ops.spatial import spatial_fsf
+    from origin_tpu_torch.ops.sweep import spectral_sweep
+
+    return (("toeplitz_sweep", spectral_sweep, "launches"),
+            ("toeplitz_sweep_bf16x3", spectral_sweep, "launches_bf16x3"),
+            ("spatial_fsf", spatial_fsf, "launches"),
+            ("matched_filter_spectral", kernels.matched_filter_spectral,
+             "launches"),
+            ("banded_matmul_spectral", kernels.banded_matmul_spectral,
+             "launches"))
+
+
+def reset_counts():
+    for _, owner, attr in _counters():
+        setattr(owner, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(owner, attr) for name, owner, attr in _counters()}
+
+
+def _time_cuda(fn, reps):
+    import torch
+
+    fn()  # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound(nbytes, flops, peak_flops):
+    """Least time in ms: bytes over the HBM rate or operations over the
+    peak rate for their type, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -120,33 +216,55 @@ def phase_build():
     from origin_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    build.load_library("toeplitz_sweep")
-    info = build.BUILD_INFO["toeplitz_sweep"]
-    log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['seconds']:.2f} s, cached={info['cached']})")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("  ptxas:", line.strip())
-    return dict(build_s=info["seconds"], cached=info["cached"],
-                ptxas=info["ptxas"])
+    build.load_libraries(build.KERNELS)
+    log(f"build of {', '.join(build.KERNELS)}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    for name in build.KERNELS:
+        info = build.BUILD_INFO[name]
+        log(f"  {name}: nvcc {info['seconds']:.2f} s, "
+            f"cached={info['cached']}")
+        for line in info["ptxas"].splitlines():
+            if "Compiling entry" in line:
+                log("  ptxas:", line.strip().split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log("  ptxas:   ", line.strip())
+        out[name] = dict(build_s=info["seconds"], cached=info["cached"],
+                         ptxas=info["ptxas"])
+    return out
 
 
-# -- phase 3 ----------------------------------------------------------------
+# -- phases 3 and b ---------------------------------------------------------
 def _banks(dico, nz, dev):
     import torch
 
-    from origin_tpu.core.profiles import default_dictionary_path, load_dictionary
-    from origin_tpu_torch.ops.glr import pack_profiles_toeplitz, prepare_profiles
+    from origin_tpu_torch.core.profiles import (
+        default_dictionary_path, load_dictionary)
+    from origin_tpu_torch.ops.glr import (
+        pack_profiles_toeplitz, prepare_profiles)
 
     profiles, _ = load_dictionary(default_dictionary_path(dico))
+    prepped = prepare_profiles(profiles)
     t_num, t_den, pad_left, _ = pack_profiles_toeplitz(
-        prepare_profiles(profiles), block=min(128, nz))
+        prepped, block=min(128, nz))
     return (torch.from_numpy(t_num).to(dev), torch.from_numpy(t_den).to(dev),
-            pad_left)
+            pad_left, prepped)
 
 
-def _t_values(x, n, taps_num, taps_den, pad_left, z, s, k):
-    """float64 t_k at voxels (z, s) for profiles k, from the taps."""
+def _dot64(a, taps, precision):
+    """Row sums of ``a * taps`` in float64, of the products the kernel
+    forms: float32 operands at ``highest``, the three bf16x3 passes."""
+    from origin_tpu_torch.ops.prec import split_bf16
+
+    if precision != "bf16x3":
+        return (a.double() * taps.double()).sum(1)
+    (ah, al), (th, tl) = split_bf16(a), split_bf16(taps)
+    ah, al, th, tl = (v.double() for v in (ah, al, th, tl))
+    return (ah * th + al * th + ah * tl).sum(1)
+
+
+def _t_values(x, n, taps_num, taps_den, pad_left, z, s, k, precision):
+    """float64 t_k at voxels (z, s) of (Nz, S) x, n, for profiles k."""
     import torch
 
     reach = taps_num.shape[1]
@@ -154,88 +272,118 @@ def _t_values(x, n, taps_num, taps_den, pad_left, z, s, k):
     zi = z[:, None] + j[None, :] - pad_left
     ok = (zi >= 0) & (zi < x.shape[0])
     zi = zi.clamp(0, x.shape[0] - 1)
-    xs = torch.where(ok, x[zi, s[:, None]], 0).double()
-    ns = torch.where(ok, n[zi, s[:, None]], 0).double()
-    num = (xs * taps_num[k].double()).sum(1)
-    den = (ns * taps_den[k].double()).sum(1)
+    xs = torch.where(ok, x[zi, s[:, None]], 0)
+    ns = torch.where(ok, n[zi, s[:, None]], 0)
+    num = _dot64(xs, taps_num[k], precision)
+    den = _dot64(ns, taps_den[k], precision)
     return num / torch.where(den <= 0, float("inf"), den.sqrt())
 
 
-def _time_cuda(fn, reps):
+def _hold_sweep(what, got, ref, x, n, t_num, t_den, pad_left,
+                precision="highest"):
+    """Check a sweep's (correl, profile, cmin) in the cube's (Nz, ...)
+    layout against the plain version's; returns (max abs err, index
+    mismatches, largest |t_a - t_b| among them).  The statistics of a
+    mismatch are those of ``precision`` (the bf16x3 products in bf16x3),
+    so a near-tie is one of the function both sides compute."""
+    from origin_tpu_torch.ops.sweep import sweep_taps
+
+    (c, p, m), (cr, pr, mr) = got, ref
+    nz = x.shape[0]
+    err = max(float((c - cr).abs().max()), float((m - mr).abs().max()))
+    close = all(bool(((a - b).abs() <= SWEEP_ATOL + SWEEP_RTOL
+                      * b.abs()).all()) for a, b in ((c, cr), (m, mr)))
+    check(p.dtype == pr.dtype, f"{what}: profile dtype {p.dtype}")
+    check(close, f"{what}: correl/cmin within atol {SWEEP_ATOL} + rtol "
+          f"{SWEEP_RTOL} of the plain version (max abs err {err:.3g})")
+    bad = (p != pr).reshape(nz, -1).nonzero()
+    gap = 0.0
+    if bad.numel():
+        taps_num, taps_den, _, _ = sweep_taps(t_num, t_den)
+        z, s = bad[:, 0], bad[:, 1]
+        xf, nf = x.reshape(nz, -1), n.reshape(nz, -1)
+        ka = p.reshape(nz, -1)[z, s].long()
+        kb = pr.reshape(nz, -1)[z, s].long()
+        ta = _t_values(xf, nf, taps_num, taps_den, pad_left, z, s, ka,
+                       precision)
+        tb = _t_values(xf, nf, taps_num, taps_den, pad_left, z, s, kb,
+                       precision)
+        gap = float((ta - tb).abs().max())
+    check(gap <= TIE_TOL, f"{what}: {bad.shape[0]} profile mismatches, "
+          f"all near-ties (max |t_a - t_b| {gap:.3g} <= {TIE_TOL})")
+    return err, int(bad.shape[0]), gap
+
+
+def _sweep_inputs(dev):
     import torch
 
-    fn()  # warm
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def phase_sweep_parity():
-    import torch
-
-    from origin_tpu.core.profiles import DICO_3FWHM, DICO_FWHM_2_12
-    from origin_tpu_torch.ops.glr import toeplitz_sweep
-    from origin_tpu_torch.ops.sweep import spectral_sweep, sweep_taps
-
-    dev = torch.device("cuda")
-    nz, ny, nx = FIELD
     g = torch.Generator(device=dev).manual_seed(20261016)
     x = torch.randn(FIELD, generator=g, device=dev)
     n = torch.rand(FIELD, generator=g, device=dev) * 1.5 + 0.5
+    return x, n
+
+
+def _sweep_bound(t_num, t_den, nvox, idx_bytes, peak):
+    """Bytes: two float32 inputs and three outputs; operations: two FMAs
+    per nonzero tap of every profile per voxel (three passes each in
+    bf16x3, on bf16 operands)."""
+    from origin_tpu_torch.ops.sweep import sweep_taps
+
+    taps = int(sweep_taps(t_num, t_den)[3].sum())
+    passes = 3 if peak == PEAK_BF16 else 1
+    return _bound(nvox * (16 + idx_bytes), 2 * 2 * taps * passes * nvox,
+                  peak)
+
+
+def phase_sweep_parity(precision):
+    import torch
+
+    from origin_tpu_torch.core.profiles import DICO_3FWHM, DICO_FWHM_2_12
+    from origin_tpu_torch.ops.glr import toeplitz_sweep
+    from origin_tpu_torch.ops.sweep import spectral_sweep
+
+    dev = torch.device("cuda")
+    nz, ny, nx = FIELD
+    x, n = _sweep_inputs(dev)
     out = {}
     for dico in (DICO_3FWHM, DICO_FWHM_2_12):
-        t_num, t_den, pad_left = _banks(dico, nz, dev)
+        t_num, t_den, pad_left, _ = _banks(dico, nz, dev)
         k = t_num.shape[0]
-        c, p, m = spectral_sweep(x, n, t_num, t_den, pad_left, nz)
+        args = (x, n, t_num, t_den, pad_left, nz)
+        got = spectral_sweep(*args, precision=precision)
         torch.cuda.synchronize()
-        cr, pr, mr = toeplitz_sweep(x, n, t_num, t_den, pad_left, nz)
-        err = max(float((c - cr).abs().max()), float((m - mr).abs().max()))
-        close = all(bool(((a - b).abs() <= SWEEP_ATOL + SWEEP_RTOL
-                          * b.abs()).all()) for a, b in ((c, cr), (m, mr)))
-        check(p.dtype == pr.dtype, f"K={k}: profile dtype {p.dtype}")
-        check(close, f"K={k}: correl/cmin within atol {SWEEP_ATOL} + rtol "
-              f"{SWEEP_RTOL} of the plain sweep (max abs err {err:.3g})")
-        bad = (p != pr).reshape(nz, -1).nonzero()
-        gap = 0.0
-        if bad.numel():
-            taps_num, taps_den, _, _ = sweep_taps(t_num, t_den)
-            z, s = bad[:, 0], bad[:, 1]
-            xf, nf = x.reshape(nz, -1), n.reshape(nz, -1)
-            ka = p.reshape(nz, -1)[z, s].long()
-            kb = pr.reshape(nz, -1)[z, s].long()
-            ta = _t_values(xf, nf, taps_num, taps_den, pad_left, z, s, ka)
-            tb = _t_values(xf, nf, taps_num, taps_den, pad_left, z, s, kb)
-            gap = float((ta - tb).abs().max())
-        check(gap <= TIE_TOL, f"K={k}: {bad.shape[0]} profile mismatches, "
-              f"all near-ties (max |t_a - t_b| {gap:.3g} <= {TIE_TOL})")
-        del c, p, m, cr, pr, mr
-        ms = _time_cuda(lambda: spectral_sweep(x, n, t_num, t_den, pad_left,
-                                               nz), reps=10)
-        plain_ms = _time_cuda(lambda: toeplitz_sweep(x, n, t_num, t_den,
-                                                     pad_left, nz), reps=3)
-        log(f"  K={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-            f"({nz}x{ny}x{nx})")
-        out[k] = dict(max_abs_err=err, mismatches=int(bad.shape[0]),
-                      tie_gap=gap, ms=ms, plain_ms=plain_ms)
+        ref = toeplitz_sweep(*args, precision=precision)
+        err, mism, gap = _hold_sweep(f"{precision} K={k}", got, ref, x, n,
+                                     t_num, t_den, pad_left, precision)
+        del got, ref
+        ms = _time_cuda(lambda: spectral_sweep(*args, precision=precision),
+                        reps=10)
+        plain_ms = _time_cuda(lambda: toeplitz_sweep(
+            *args, precision=precision), reps=3)
+        peak = PEAK_BF16 if precision == "bf16x3" else PEAK_FP32
+        bound, by = _sweep_bound(t_num, t_den, x.numel(), 1, peak)
+        log(f"  {precision} K={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {bound:.3f} ms ({by}) at {nz}x{ny}x{nx}")
+        out[k] = dict(max_abs_err=err, mismatches=mism, tie_gap=gap, ms=ms,
+                      plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     return out
 
 
-# -- phases 4 and 5 -----------------------------------------------------------
+# -- phases 4, 5 and d --------------------------------------------------------
 STEP_NAMES = ("step01", "step02", "step03", "step04", "step05", "step06",
               "step07")
 
 
-def _run_steps(orig, step_kwargs):
+def _run_steps(orig, step_kwargs, names=STEP_NAMES, sync=True):
     walls = {}
-    for name in STEP_NAMES:
+    for name in names:
         method = next(getattr(orig, m) for m in dir(orig)
                       if m.startswith(name + "_"))
-        walls[name] = sync_wall(lambda: method(**step_kwargs.get(name, {})))
+        call = lambda: method(**step_kwargs.get(name, {}))  # noqa: E731
+        if sync:
+            walls[name] = sync_wall(call)
+        else:
+            call()
     return walls
 
 
@@ -246,8 +394,9 @@ def _catalog_rows(cat):
     return np.stack([np.asarray(cat[c], np.int64) for c in cols], axis=1)
 
 
-def _rerun_with_plain_sweep(orig, step_kwargs):
-    """Steps 05-07 again with the plain sweep in place of the kernel."""
+def _rerun_with_plain(orig, step_kwargs, precision):
+    """Steps 05-07 again with the plain versions in place of the kernels
+    (the spatial stage's too in bf16x3)."""
     import numpy as np
 
     from origin_tpu_torch.ops import glr
@@ -255,15 +404,14 @@ def _rerun_with_plain_sweep(orig, step_kwargs):
 
     rows, tglr = _catalog_rows(orig.Cat1), np.asarray(orig.Cat1["T_GLR"])
     thr = (orig.param["threshold"], orig.param["threshold_std"])
-    kernel = engine.spectral_sweep
+    kernels = engine.spectral_sweep, engine.spatial_fsf
     engine.spectral_sweep = glr.toeplitz_sweep
+    engine.spatial_fsf = glr.glr_spatial_matmul
     try:
-        for name in ("step05", "step06", "step07"):
-            method = next(getattr(orig, m) for m in dir(orig)
-                          if m.startswith(name + "_"))
-            method(**step_kwargs.get(name, {}))
+        _run_steps(orig, step_kwargs, ("step05", "step06", "step07"),
+                   sync=False)
     finally:
-        engine.spectral_sweep = kernel
+        engine.spectral_sweep, engine.spatial_fsf = kernels
     same_rows = (rows.shape == _catalog_rows(orig.Cat1).shape
                  and bool((rows == _catalog_rows(orig.Cat1)).all()))
     plain_t = np.asarray(orig.Cat1["T_GLR"])
@@ -272,8 +420,8 @@ def _rerun_with_plain_sweep(orig, step_kwargs):
     dthr = max(abs(thr[0] - orig.param["threshold"]),
                abs(thr[1] - orig.param["threshold_std"]))
     check(same_rows and t_ok and dthr <= 1e-3,
-          f"steps 05-07 with the plain sweep: same Cat1 rows and T_GLR "
-          f"(rtol 1e-4), thresholds within {dthr:.2g} <= 1e-3")
+          f"{precision} steps 05-07 with the plain versions: same Cat1 rows "
+          f"and T_GLR (rtol 1e-4), thresholds within {dthr:.2g} <= 1e-3")
 
 
 def _recovered(cat, lines):
@@ -299,25 +447,46 @@ def _summary(orig, gold):
     return out
 
 
-def phase_minicube():
-    import numpy as np
+def _path_kernels(precision):
+    """The kernels that steps 01-07 launch at this precision."""
+    if precision == "bf16x3":
+        return ("spatial_fsf", "toeplitz_sweep_bf16x3")
+    return ("toeplitz_sweep",)
 
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from make_minicube import BRIGHT_LINES, FAINT_LINES, make_minicube, make_segmap
 
-    from origin_tpu_torch.pipeline.session import ORIGIN
+def _minicube_files():
+    from tools_torch.synthetic import make_minicube, make_segmap
 
     cube_fn = os.path.join(WORK, "minicube.fits")
     seg_fn = os.path.join(WORK, "segmap.fits")
     make_minicube(cube_fn)
     make_segmap(seg_fn)
+    return cube_fn, seg_fn
+
+
+def phase_minicube(precision="highest"):
+    from origin_tpu_torch import native
+    from origin_tpu_torch.pipeline.session import ORIGIN
+    from tools_torch.synthetic import BRIGHT_LINES, FAINT_LINES
+
+    cube_fn, seg_fn = _minicube_files()
     kwargs = dict(step02=dict(minsize=30, maxsize=60),
                   step06=dict(purity=0.8), step07=dict(segmap=seg_fn))
-    orig = ORIGIN.init(cube_fn, name="minicube", path=WORK,
+    reset_counts()
+    orig = ORIGIN.init(cube_fn, name=f"minicube_{precision}", path=WORK,
                        loglevel="WARNING", device="cuda")
     walls = _run_steps(orig, kwargs)
+    counts = read_counts()
     log("  walls: " + " ".join(f"{k} {v:.2f}s" for k, v in walls.items()))
+    log(f"  launches in this run: {counts}")
     out = _summary(orig, GOLD_MINI)
+    out["launches"] = counts
+    for name in _path_kernels(precision):
+        check(counts[name] > 0, f"the minicube run launched {name} "
+              f"({counts[name]} launches)")
+    out["fof"] = ("native C++ (g++)" if native.get_lib() is not None
+                  else "Python fallback")
+    log(f"  step 07 friends-of-friends: {out['fof']}")
     check(abs(out["threshold_std"] - GOLD_MINI["threshold_std"])
           <= THRESH_TOL, "minicube std threshold within 0.02 of JAX")
     gap = out["threshold"] - FULL_BUDGET_MINI_THRESHOLD
@@ -330,71 +499,323 @@ def phase_minicube():
     lines = [(x, y, z) for x, y, z, _, _ in FAINT_LINES + BRIGHT_LINES]
     got, tot = _recovered(orig.Cat1, lines)
     check(got == tot, f"minicube: {got}/{tot} injected lines in Cat1")
-    _rerun_with_plain_sweep(orig, kwargs)
+    _rerun_with_plain(orig, kwargs, precision)
     orig.close_logfile()
     out["walls"] = walls
     return out
 
 
-def phase_field():
+def _field_checks(got, orig, lines):
+    bright = [(x, y, z) for x, y, z, kind in lines if kind == "bright"]
+    faint = [(x, y, z) for x, y, z, kind in lines if kind == "faint"]
+    gb, nb = _recovered(orig.Cat1, bright)
+    gf, nf = _recovered(orig.Cat1, faint)
+    log(f"  injected lines recovered: bright {gb}/{nb}, faint {gf}/{nf}")
+    got.update(bright=[gb, nb], faint=[gf, nf])
+    check(abs(got["threshold_std"] - GOLD_FIELD["threshold_std"])
+          <= THRESH_TOL, f"field std threshold within {THRESH_TOL} of JAX")
+    check(abs(got["threshold"] - ORACLE_FIELD["threshold"]) <= THRESH_TOL,
+          f"field correl threshold within {THRESH_TOL} of the step-04 "
+          f"oracle's {ORACLE_FIELD['threshold']} (JAX's early-stopped "
+          f"{GOLD_FIELD['threshold']})")
+    for key in ("cat0", "cat1"):
+        check(abs(got[key] - ORACLE_FIELD[key]) <= COUNT_TOL,
+              f"field {key} {got[key]} within {COUNT_TOL} line of the "
+              f"step-04 oracle's {ORACLE_FIELD[key]} (JAX's early-stopped "
+              f"{GOLD_FIELD[key]})")
+    check(gb == nb, "field: every bright injected line in Cat1")
+
+
+def phase_field(field, precision="highest"):
+    """Steps 01-07 of the field, cold then warm; the counters are set to 0
+    just before the cold run and read just after it."""
     import torch
 
-    from origin_tpu_torch.ops.sweep import spectral_sweep
     from origin_tpu_torch.pipeline.session import ORIGIN
 
-    bench = _load_file("bench_e2e", os.path.join(REPO, "tools",
-                                                  "bench_e2e.py"))
-    t0 = time.perf_counter()
-    cube, lines = bench.make_field(*FIELD, seed=7)
-    log(f"  field {FIELD} generated in {time.perf_counter() - t0:.1f} s")
+    cube, lines = field
     kwargs = dict(step06=dict(purity=0.8))
-    runs = {}
-    for run in ("cold", "warm"):
+    out = {}
+    runs = ("cold", "warm")
+    for run in runs:
         gc.collect()  # the session <-> engine cycle holds the last run's cubes
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        if run == "cold":
-            spectral_sweep.launches = 0
-        orig = ORIGIN.init(cube, name=f"field_{run}", path=WORK,
+        first = run == runs[0]
+        if first:
+            reset_counts()
+        orig = ORIGIN.init(cube, name=f"field_{precision}_{run}", path=WORK,
                            loglevel="WARNING", device="cuda")
         walls = _run_steps(orig, kwargs)
-        if run == "cold":
-            launches = spectral_sweep.launches
+        if first:
+            counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
         log(f"  {run}: " + " ".join(f"{k} {v:.3f}s" for k, v in walls.items())
             + f"  total {sum(walls.values()):.3f}s  peak {peak / 2**30:.2f}"
             " GiB")
-        runs[run] = dict(walls=walls, total=sum(walls.values()),
-                         peak_bytes=peak, **_summary(orig, GOLD_FIELD))
-        if run == "cold":
-            check(launches > 0, f"main path launched the sweep kernel "
-                  f"({launches} launches)")
-            bright = [(x, y, z) for x, y, z, kind in lines if kind == "bright"]
-            faint = [(x, y, z) for x, y, z, kind in lines if kind == "faint"]
-            gb, nb = _recovered(orig.Cat1, bright)
-            gf, nf = _recovered(orig.Cat1, faint)
-            log(f"  injected lines recovered: bright {gb}/{nb}, "
-                f"faint {gf}/{nf}")
-            runs[run].update(bright=[gb, nb], faint=[gf, nf])
-            got = runs[run]
-            check(abs(got["threshold_std"] - GOLD_FIELD["threshold_std"])
-                  <= THRESH_TOL, f"field std threshold within {THRESH_TOL} "
-                  "of JAX")
-            check(abs(got["threshold"] - ORACLE_FIELD["threshold"])
-                  <= THRESH_TOL, f"field correl threshold within "
-                  f"{THRESH_TOL} of the step-04 oracle's "
-                  f"{ORACLE_FIELD['threshold']} (JAX's early-stopped "
-                  f"{GOLD_FIELD['threshold']})")
-            for key in ("cat0", "cat1"):
-                check(abs(got[key] - ORACLE_FIELD[key]) <= COUNT_TOL,
-                      f"field {key} {got[key]} within {COUNT_TOL} line of "
-                      f"the step-04 oracle's {ORACLE_FIELD[key]} (JAX's "
-                      f"early-stopped {GOLD_FIELD[key]})")
-            check(gb == nb, "field: every bright injected line in Cat1")
-            _rerun_with_plain_sweep(orig, kwargs)
+        out[run] = dict(walls=walls, total=sum(walls.values()),
+                        peak_bytes=peak, **_summary(orig, GOLD_FIELD))
+        if first:
+            log(f"  launches in this run: {counts}")
+            out[run]["launches"] = counts
+            for name in _path_kernels(precision):
+                check(counts[name] > 0, f"the {precision} field run launched "
+                      f"{name} ({counts[name]} launches)")
+            _field_checks(out[run], orig, lines)
+            _rerun_with_plain(orig, kwargs, precision)
         orig.close_logfile()
         del orig
-    return runs, launches
+    return out, counts
+
+
+# -- phase a ------------------------------------------------------------------
+def _spatial_problem(nz, ny, nx, nfields, dev, psf_size=25, seed=3):
+    """The field's FSF (the synthetic cubes' Moffat model) for nz channels,
+    F fields scaled apart and random weights, and a random cube."""
+    import numpy as np
+    import torch
+
+    from origin_tpu_torch.core import MoffatFSF
+    from origin_tpu_torch.ops import glr
+    from origin_tpu_torch.ops.convolve import fft2_shape
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cube = torch.randn((nz, ny, nx), generator=g, device=dev)
+    fsf = MoffatFSF(fwhm_pol=[-0.2, 0.7], beta_pol=[2.8], pixstep=0.2)
+    one = fsf.get_3darray(4750.0 + 1.25 * np.arange(nz),
+                          (psf_size, psf_size)).astype(np.float32)
+    psfs = torch.from_numpy(np.stack([one * (1 + 0.1 * f)
+                                      for f in range(nfields)])).to(dev)
+    wmaps = (None if nfields == 1 else
+             torch.rand((nfields, ny, nx), generator=g, device=dev) * 0.8
+             + 0.2)
+    fshape2 = fft2_shape((ny, nx), (psf_size, psf_size))
+    kern_hats, _ = glr.precompute_spatial(psfs, wmaps, ny, nx, fshape2)
+    factors = {k: torch.from_numpy(v).to(dev) for k, v in
+               glr.dft_spatial_factors(ny, nx, fshape2,
+                                       (psf_size, psf_size)).items()}
+    args = (cube, kern_hats.real.contiguous(), kern_hats.imag.contiguous(),
+            wmaps, factors)
+    return args, psfs
+
+
+def _spatial_bound(args, precision):
+    """Bytes: the cube in, out, the spectra and the factors (weights in
+    mosaic mode); operations: the 12 products' FMAs, twice FLOPs, three
+    bf16 passes in bf16x3 (tensor-core rate) or float32 (CUDA cores)."""
+    cube, kr, _, wmaps, factors = args
+    nfields, nz, fy, fxr = kr.shape
+    ny, nx = cube.shape[1:]
+    fmas = nfields * nz * (4 * ny * nx * fxr + 8 * fy * ny * fxr)
+    nbytes = 4 * (2 * cube.numel() + 2 * kr.numel()
+                  + sum(f.numel() for f in factors.values())
+                  + (0 if wmaps is None else wmaps.numel()))
+    if precision == "bf16x3":
+        return _bound(nbytes, 3 * 2 * fmas, PEAK_BF16)
+    return _bound(nbytes, 2 * fmas, PEAK_FP32)
+
+
+def _rms(t):
+    return float(t.double().square().mean().sqrt())
+
+
+def _library_conv(cube, psfs):
+    """One torch call computing the single-field stage: a depthwise
+    conv2d (a correlation) with each channel's zero-mean FSF, 'same'."""
+    import torch
+
+    kern = psfs[0] - psfs[0].mean(dim=(1, 2), keepdim=True)
+    pad = kern.shape[-1] // 2
+    return lambda: torch.nn.functional.conv2d(
+        cube[None], kern[:, None], padding=pad, groups=cube.shape[0])[0]
+
+
+def phase_spatial():
+    import torch
+
+    from origin_tpu_torch.device import set_precision
+    from origin_tpu_torch.ops import glr
+    from origin_tpu_torch.ops.spatial import spatial_fsf
+
+    set_precision()  # float32 cuBLAS and cuDNN, as a session sets it
+    dev = torch.device("cuda")
+    out = {}
+    cases = (("field", FIELD, 1), ("mosaic", (256, 100, 200), 2),
+             ("300x300", (256, 300, 300), 1))
+    for label, shape, nfields in cases:
+        args, psfs = _spatial_problem(*shape, nfields, dev)
+        res, outs = {}, {}
+        for precision in ("highest", "bf16x3"):
+            got = spatial_fsf(*args, precision=precision)
+            torch.cuda.synchronize()
+            ref = glr.glr_spatial_matmul(*args, precision=precision)
+            err = float((got - ref).abs().max())
+            rms_err = _rms(got - ref)
+            scale = float(ref.abs().max())
+            outs[precision] = got
+            del got, ref
+            tol = SPATIAL_ATOL[precision]
+            check(err <= tol, f"spatial {label} {shape} F={nfields} "
+                  f"{precision}: max abs err {err:.3g} <= {tol} (values up "
+                  f"to {scale:.3g}, RMS err {rms_err:.3g})")
+            ms = _time_cuda(lambda: spatial_fsf(*args, precision=precision),
+                            reps=3)
+            plain_ms = _time_cuda(lambda: glr.glr_spatial_matmul(
+                *args, precision=precision), reps=3)
+            bound, by = _spatial_bound(args, precision)
+            res[precision] = dict(max_abs_err=err, rms_err=rms_err, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound,
+                                  bound_by=by)
+            log(f"  {label} {precision}: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+        sep = _rms(outs.pop("bf16x3") - outs.pop("highest"))
+        res["bf16x3"]["rms_from_highest"] = sep
+        noise, err3 = res["highest"]["rms_err"], res["bf16x3"]["rms_err"]
+        check(sep >= SPLIT_SEPARATION * noise,
+              f"spatial {label} bf16x3 kernel splits: RMS {sep:.3g} from the "
+              f"highest kernel >= {SPLIT_SEPARATION:g} x the float32 order "
+              f"noise {noise:.3g} (ratio {sep / noise:.3g})")
+        check(sep >= SPLIT_NEARER * err3,
+              f"spatial {label} bf16x3 kernel splits where its plain version "
+              f"does: RMS {err3:.3g} from it, {sep:.3g} from the highest "
+              f"kernel (ratio {sep / err3:.3g} >= {SPLIT_NEARER:g})")
+        if nfields == 1 and label == "field":
+            conv = _library_conv(args[0], psfs)
+            lib_err = float((conv() - glr.glr_spatial_matmul(*args))
+                            .abs().max())
+            lib_ms = _time_cuda(conv, reps=3)
+            log(f"  {label} library conv2d: {lib_ms:.3f} ms (max abs diff "
+                f"from the cuBLAS chain {lib_err:.3g})")
+            res.update(library_ms=lib_ms, library_err=lib_err)
+        out[label] = res
+        del args, psfs
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phase c ------------------------------------------------------------------
+def phase_spaxel_major():
+    """Each spaxel-major entry called once on the field (the counted
+    path), then compared with its plain version and timed."""
+    import numpy as np
+    import torch
+
+    from origin_tpu_torch.core.profiles import DICO_3FWHM
+    from origin_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    nz = FIELD[0]
+    x, n = _sweep_inputs(dev)
+    t_num, t_den, pad_left, prepped = _banks(DICO_3FWHM, nz, dev)
+    length = max(len(p) for p, _ in prepped)
+    bank = np.zeros((len(prepped), length), np.float32)
+    for k, (p, _) in enumerate(prepped):
+        bank[k, :len(p)] = p
+    bank2 = bank ** 2
+    centers = [c for _, c in prepped]
+    xs = x.reshape(nz, -1).T.contiguous()
+    ns = n.reshape(nz, -1).T.contiguous()
+    entries = dict(
+        matched_filter_spectral=(
+            lambda: kernels.matched_filter_spectral(xs, ns, bank, bank2,
+                                                    centers),
+            lambda: kernels.matched_filter_plain(
+                xs, ns, torch.from_numpy(bank), torch.from_numpy(bank2),
+                centers)),
+        banded_matmul_spectral=(
+            lambda: kernels.banded_matmul_spectral(xs, ns, t_num, t_den,
+                                                   pad_left, nz),
+            lambda: kernels.banded_matmul_plain(xs, ns, t_num, t_den,
+                                                pad_left, nz)))
+    back = lambda a: a.T.reshape(FIELD)  # noqa: E731
+    out = {}
+    for name, (entry, plain) in entries.items():
+        reset_counts()
+        got = entry()
+        torch.cuda.synchronize()
+        launches = read_counts()[name]
+        check(launches == 1, f"{name}: one launch through its entry point")
+        ref = plain()
+        (c, m, p), (cr, mr, pr) = got, ref
+        err, mism, gap = _hold_sweep(name, (back(c), back(p), back(m)),
+                                     (back(cr), back(pr), back(mr)), x, n,
+                                     t_num, t_den, pad_left)
+        del got, ref, c, m, p, cr, mr, pr
+        ms = _time_cuda(entry, reps=10)
+        plain_ms = _time_cuda(plain, reps=2)
+        bound, by = _sweep_bound(t_num, t_den, x.numel(), 4, PEAK_FP32)
+        log(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound:.3f} ms ({by})")
+        out[name] = dict(launches=launches, max_abs_err=err,
+                         mismatches=mism, tie_gap=gap, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    return out
+
+
+# -- phase d ------------------------------------------------------------------
+def phase_bf16x3(field, highest):
+    prev = os.environ.get("ORIGIN_TPU_PRECISION")
+    os.environ["ORIGIN_TPU_PRECISION"] = "bf16x3"
+    try:
+        log("  minicube:")
+        mini = phase_minicube("bf16x3")
+        log("  field:")
+        runs, counts = phase_field(field, "bf16x3")
+    finally:
+        if prev is None:
+            os.environ.pop("ORIGIN_TPU_PRECISION")
+        else:
+            os.environ["ORIGIN_TPU_PRECISION"] = prev
+    check(counts["toeplitz_sweep"] == 0 and counts["spatial_fsf"] == 1,
+          "the bf16x3 field run took the JAX route: one spatial launch, "
+          "no float32 sweep")
+    him, hif = highest["minicube"], highest["field"]["cold"]
+    got = runs["cold"]
+    check(all(mini[k] == him[k] for k in ("cat0", "cat1")),
+          f"minicube bf16x3 Cat0/Cat1 {mini['cat0']}/{mini['cat1']} equal "
+          f"the highest run's")
+    dmini = abs(mini["threshold"] - him["threshold"])
+    check(dmini <= BF16X3_MINI_THRESH_TOL, f"minicube bf16x3 correl "
+          f"threshold within {dmini:.3g} <= {BF16X3_MINI_THRESH_TOL} of "
+          f"highest")
+    for key in ("cat0", "cat1"):
+        check(abs(got[key] - hif[key]) <= COUNT_TOL,
+              f"field bf16x3 {key} {got[key]} within {COUNT_TOL} line of "
+              f"highest's {hif[key]}")
+    dfield = abs(got["threshold"] - hif["threshold"])
+    check(dfield <= BF16X3_FIELD_THRESH_TOL, f"field bf16x3 correl "
+          f"threshold within {dfield:.3g} <= {BF16X3_FIELD_THRESH_TOL} of "
+          f"highest")
+    return dict(minicube=mini, field=runs, launches=counts)
+
+
+def _kernel_line(res):
+    sweep, sweep3 = res["sweep"][3], res["sweep_bf16x3"][3]
+    spatial = res["spatial"]["field"]
+    rows = dict(
+        toeplitz_sweep=dict(
+            launches=res["field"]["cold"]["launches"]["toeplitz_sweep"],
+            library_ms=None, **sweep),
+        toeplitz_sweep_bf16x3=dict(
+            launches=res["bf16x3"]["launches"]["toeplitz_sweep_bf16x3"],
+            library_ms=None, **sweep3),
+        spatial_fsf=dict(
+            launches=res["bf16x3"]["launches"]["spatial_fsf"],
+            library_ms=spatial["library_ms"], precision="bf16x3",
+            **spatial["bf16x3"]),
+        **{name: dict(library_ms=None, **res["spaxel_major"][name])
+           for name in ("matched_filter_spectral",
+                        "banded_matmul_spectral")})
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    out = []
+    for name, row in rows.items():
+        source, replaces = KERNEL_SOURCES[name]
+        out.append(dict(name=name, route="cuda", source=source,
+                        replaces=replaces, **{k: row[k] for k in keys}))
+        if "precision" in row:
+            out[-1]["precision"] = row["precision"]
+    return {"kernels": out}
 
 
 def main():
@@ -405,36 +826,46 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     import origin_tpu_torch  # noqa: F401  (fails outside the repository)
+    from tools_torch.synthetic import make_field
 
     os.makedirs(WORK, exist_ok=True)
+    t_start = time.perf_counter()
     res = {}
     log("[1] versions")
     res["versions"] = phase_versions()
     log("[2] build")
     res["build"] = phase_build()
     log("[3] sweep kernel vs plain at %dx%dx%d" % FIELD)
-    res["sweep"] = phase_sweep_parity()
+    res["sweep"] = phase_sweep_parity("highest")
     log("[4] minicube steps 01-07 on cuda")
     res["minicube"] = phase_minicube()
     log("[5] field %dx%dx%d steps 01-07 on cuda" % FIELD)
-    res["field"], launches = phase_field()
-    jaxed = [m for m in sys.modules if m == "jax" or m.startswith(
-        ("jax.", "origin_tpu.ops", "origin_tpu.pipeline", "origin_tpu.detect"))]
-    check(not jaxed, "nothing of JAX or of the JAX package's device code "
-          "was imported")
+    t0 = time.perf_counter()
+    field = make_field(*FIELD, seed=7)
+    log(f"  field {FIELD} generated in {time.perf_counter() - t0:.1f} s")
+    res["field"], _ = phase_field(field)
+    log("[a] spatial FSF kernel vs plain")
+    res["spatial"] = phase_spatial()
+    log("[b] bf16x3 sweep kernel vs plain at %dx%dx%d" % FIELD)
+    res["sweep_bf16x3"] = phase_sweep_parity("bf16x3")
+    log("[c] spaxel-major sweeps vs plain at %dx%dx%d" % FIELD)
+    res["spaxel_major"] = phase_spaxel_major()
+    log("[d] minicube and field steps 01-07 in bf16x3")
+    res["bf16x3"] = phase_bf16x3(field, res)
+    jaxed = sorted(m for m in sys.modules if m.split(".")[0] in
+                   ("jax", "origin_tpu"))
+    check(not jaxed, "nothing of JAX or of the JAX package was imported "
+          f"({jaxed[:5]})")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"chip_smoke: {res['seconds']:.1f} s")
 
+    line = _kernel_line(res)
     os.makedirs(os.path.dirname(RESULTS), exist_ok=True)
     with open(RESULTS, "w") as fh:
-        json.dump(res, fh, indent=1, default=str)
-    k3 = res["sweep"][3]
+        json.dump(dict(res, kernels=line["kernels"]), fh, indent=1,
+                  default=str)
     log(res["versions"]["nvidia_smi"])
-    log(json.dumps({"kernels": [{
-        "name": "toeplitz_sweep", "route": "cuda",
-        "source": "origin_tpu_torch/csrc/toeplitz_sweep.cu",
-        "replaces": "origin_tpu/ops/pallas_sweep.py:42",
-        "launches": launches, "max_abs_err": k3["max_abs_err"],
-        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-    }]}))
+    log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

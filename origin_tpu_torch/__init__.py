@@ -5,14 +5,18 @@ It runs steps 01-07 of a session, from the cube to the Cat1 line catalog,
 through the same entry point (``ORIGIN.init(cube, ..., device="cuda")``
 then ``step01_preprocessing()`` .. ``step07_detection()``).  The GLR
 spectral sweep of step 05 runs in a hand-written CUDA kernel
-(``csrc/toeplitz_sweep.cu``); every other device stage is stock torch.
+(``csrc/toeplitz_sweep.cu``), in float32 or in the bf16x3 mode
+(``ORIGIN_TPU_PRECISION=bf16x3``), where the spatial FSF stage runs in a
+second one (``csrc/spatial_fsf.cu``); every other device stage is stock
+torch.
 
-The package imports ``torch`` and never ``jax``.  It reuses the jax-free
-host substrate of the JAX package: ``origin_tpu.core``, ``origin_tpu.fitsio``,
-``origin_tpu.native`` and ``origin_tpu.version``.
+The package imports ``torch`` and nothing of ``jax`` or of ``origin_tpu``:
+it carries its own copies of the host substrate it needs (``core``,
+``fitsio``, ``native``, ``version`` and the profile dictionaries in
+``data``).
 """
 
-from origin_tpu.version import version as __version__  # noqa: F401
+from .version import version as __version__  # noqa: F401
 
 
 def __getattr__(name):

@@ -13,7 +13,7 @@ from datetime import datetime
 import numpy as np
 from scipy.spatial import cKDTree
 
-from origin_tpu.core.table import Table, join
+from ..core.table import Table, join
 
 __all__ = [
     "purity_estimation",

@@ -25,10 +25,10 @@ __all__ = ["spatiospectral_merging", "filter_duplicate_lines"]
 def _merge_groups(x, y, z, tol_spat, tol_spec):
     """First (spatial) pass. Returns imatch (group seed index per row).
 
-    Uses the native C++ core (origin_tpu.native) when available — identical
+    Uses the native C++ core (origin_tpu_torch.native) when available — identical
     traversal, grid-accelerated — and falls back to the Python DFS.
     """
-    from origin_tpu import native
+    from .. import native
 
     res = native.fof_merge_groups(x, y, z, tol_spat, tol_spec)
     if res is not None:

@@ -192,7 +192,7 @@ def compute_deblended_segmap(image, npixels=5, snr=3, dilate_size=11, maxiters=5
     ``image`` may be an Image container or a plain array; returns the same
     kind.
     """
-    from origin_tpu.core.containers import Image
+    from ..core.containers import Image
 
     data = image.data if isinstance(image, Image) else np.asarray(image)
     mask = make_source_mask(data, snr=snr, npixels=npixels, dilate_size=dilate_size)

@@ -18,7 +18,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "nvcc_command", "BUILD_INFO"]
+__all__ = ["load_library", "load_libraries", "nvcc_command", "BUILD_INFO",
+           "KERNELS"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -28,6 +29,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+#: every CUDA source of the port, by name
+KERNELS = ("toeplitz_sweep", "spatial_fsf")
 
 #: name -> {"command", "seconds", "cached", "ptxas"} of the last load
 BUILD_INFO = {}
@@ -56,38 +60,56 @@ def nvcc_command(name, out=None, nvcc=None):
 
 def load_library(name):
     """``ctypes.CDLL`` of ``csrc/<name>.cu``, built on first use."""
+    return load_libraries([name])[name]
+
+
+def load_libraries(names):
+    """``{name: ctypes.CDLL}`` of ``csrc/<name>.cu`` for each name; the
+    ones not built yet are compiled together, one ``nvcc`` per source,
+    all started at once."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        src = CSRC_DIR / f"{name}.cu"
-        nvcc = _find_nvcc()
-        if nvcc is None:
+        todo = [n for n in dict.fromkeys(names) if n not in _LIBS]
+        nvcc = _find_nvcc() if todo else None
+        if todo and nvcc is None:
             raise RuntimeError(
                 f"nvcc not found (set NVCC or CUDA_HOME): cannot build "
-                f"{src} with: {' '.join(nvcc_command(name))}"
+                f"{todo} with: {' '.join(nvcc_command(todo[0]))}"
             )
-        key = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}_{key}.so"
-        info = {"cached": out.is_file(), "seconds": 0.0, "ptxas": ""}
-        if not info["cached"]:
+        jobs = {}
+        for name in todo:
+            src = CSRC_DIR / f"{name}.cu"
+            key = hashlib.sha256(
+                src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            ).hexdigest()[:16]
+            out = BUILD_DIR / f"lib{name}_{key}.so"
+            info = {"cached": out.is_file(), "seconds": 0.0, "ptxas": ""}
+            BUILD_INFO[name] = info
+            if info["cached"]:
+                jobs[name] = (out, None, None, None)
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = BUILD_DIR / f".lib{name}_{key}.{os.getpid()}.so"
             cmd = nvcc_command(name, out=tmp, nvcc=nvcc)
             info["command"] = " ".join(cmd)
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            jobs[name] = (out, tmp, proc, time.perf_counter())
+        failed = []
+        for name, (out, tmp, proc, t0) in jobs.items():
+            if proc is None:
+                continue
+            _, err = proc.communicate()
+            info = BUILD_INFO[name]
             info["seconds"] = time.perf_counter() - t0
-            info["ptxas"] = res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc build of {src} failed (exit {res.returncode}); "
-                    f"command: {' '.join(cmd)}\n{res.stderr}"
-                )
-            os.replace(tmp, out)  # atomic against concurrent builders
-        BUILD_INFO[name] = info
-        lib = ctypes.CDLL(str(out))
-        _LIBS[name] = lib
-        return lib
+            info["ptxas"] = err
+            if proc.returncode != 0:
+                failed.append(f"nvcc build of {CSRC_DIR / (name + '.cu')} "
+                              f"failed (exit {proc.returncode}); command: "
+                              f"{info['command']}\n{err}")
+            else:
+                os.replace(tmp, out)  # atomic against concurrent builders
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, (out, *_) in jobs.items():
+            _LIBS[name] = ctypes.CDLL(str(out))
+        return {name: _LIBS[name] for name in names}

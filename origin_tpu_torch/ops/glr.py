@@ -5,18 +5,25 @@ the plain spectral sweep (torch port of :mod:`origin_tpu.ops.glr`).
    the weight map with FSF^2 for the norm).  The FSF spectra and the norm
    cube are data-independent (:func:`precompute_spatial`, ``torch.fft``);
    the per-cube convolution is DFT-by-matmul (:func:`glr_spatial_matmul`),
-   plain products as in the JAX package.
+   the plain version of the CUDA kernel
+   :func:`origin_tpu_torch.ops.spatial.spatial_fsf`.
 2. Spectral stage: each trimmed, normalized profile is a 'same'
    correlation along z, with a running max / argmax / min over the
    dictionary.  :func:`toeplitz_sweep` here is the plain version (unfold +
    matmul against the banded-Toeplitz banks); the CUDA kernel that runs
    on the GPU is :func:`origin_tpu_torch.ops.sweep.spectral_sweep`.
+
+Both plain versions take ``precision="highest"`` (float32 products) or
+``"bf16x3"`` (the 3-pass bfloat16 scheme of :mod:`.prec`, split where the
+TPU kernels split).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .prec import split_and_dot
 
 __all__ = [
     "prepare_profiles",
@@ -157,55 +164,71 @@ def precompute_spatial(psfs, wmaps, ny, nx, fshape2):
     return torch.stack(kern_hats), norm_fsf.contiguous()
 
 
-def glr_spatial_matmul(cube, kern_r, kern_i, wmaps, factors):
-    """Spatial FSF stage as batched float32 matmuls (DFT-by-matmul).
+def glr_spatial_matmul(cube, kern_r, kern_i, wmaps, factors,
+                       precision="highest"):
+    """Spatial FSF stage as batched matmuls (DFT-by-matmul).
 
     ``kern_r/kern_i``: (F, Nz, FY, FXr) real/imag parts of the FSF spectra
     from :func:`precompute_spatial`; ``factors`` from
     :func:`dft_spatial_factors`, as tensors.  Returns cube_fsf (Nz, Ny, Nx).
+
+    At ``"highest"`` these are float32 matmuls (cuBLAS on a GPU: the JAX
+    package's XLA route).  In ``"bf16x3"`` the chain splits where the TPU
+    kernel ``_spatial_kernel`` splits (``pallas_spatial.py:56-79``): the
+    factor matrices, the (weighted) data slab, ``zr``/``zi`` after the
+    x-DFT, ``pr``/``pi`` after the float32 spectral multiply and
+    ``gr``/``gi`` before the inverse x-DFT.  This is the plain version of
+    the CUDA kernel :func:`origin_tpu_torch.ops.spatial.spatial_fsf`.
     """
-    axr, axi = factors["axr"], factors["axi"]
-    ayr, ayi = factors["ayr"], factors["ayi"]
-    byr, byi = factors["byr"], factors["byi"]
-    cxr, cxi = factors["cxr"], factors["cxi"]
+    sp, d3 = split_and_dot(precision)
+    axr, axi = sp(factors["axr"]), sp(factors["axi"])
+    ayr, ayi = sp(factors["ayr"]), sp(factors["ayi"])
+    byr, byi = sp(factors["byr"]), sp(factors["byi"])
+    cxr, cxi = sp(factors["cxr"]), sp(factors["cxi"])
     cube_fsf = None
     for nf in range(kern_r.shape[0]):
-        data = cube if wmaps is None else cube * wmaps[nf][None]
-        zr = data @ axr  # (z, ny, FXr)
-        zi = data @ axi
-        yr = ayr @ zr - ayi @ zi  # (z, FY, FXr)
-        yi = ayr @ zi + ayi @ zr
+        data = sp(cube if wmaps is None else cube * wmaps[nf][None])
+        zr = sp(d3(data, axr))  # (z, ny, FXr)
+        zi = sp(d3(data, axi))
+        del data
+        yr = d3(ayr, zr) - d3(ayi, zi)  # (z, FY, FXr)
+        yi = d3(ayr, zi) + d3(ayi, zr)
         del zr, zi
-        pr = yr * kern_r[nf] - yi * kern_i[nf]
-        pi = yr * kern_i[nf] + yi * kern_r[nf]
+        pr = sp(yr * kern_r[nf] - yi * kern_i[nf])
+        pi = sp(yr * kern_i[nf] + yi * kern_r[nf])
         del yr, yi
-        gr = byr @ pr - byi @ pi  # (z, ny, FXr)
-        gi = byr @ pi + byi @ pr
+        gr = sp(d3(byr, pr) - d3(byi, pi))  # (z, ny, FXr)
+        gi = sp(d3(byr, pi) + d3(byi, pr))
         del pr, pi
-        out = gr @ cxr - gi @ cxi
+        out = d3(gr, cxr) - d3(gi, cxi)
         cube_fsf = out if cube_fsf is None else cube_fsf + out
     return cube_fsf
 
 
 def toeplitz_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
-                   max_transient_bytes=2 << 30):
+                   max_transient_bytes=2 << 30, precision="highest"):
     """Plain spectral sweep: unfold + matmul against the Toeplitz banks.
 
     Inputs are (Nz, Ny, Nx) float32 cubes and the (K, W, block) banks of
     :func:`pack_profiles_toeplitz`; returns (correl, profile_idx,
     correl_min), each (Nz, Ny, Nx).  Profile indices are uint8 for up to
     255 profiles and int32 beyond that; on a tie the first profile wins.
+    In ``"bf16x3"`` the input windows and the banks are split, as the TPU
+    kernel splits them (``pallas_sweep.py:57-64``).
 
     The sliding-window view costs ~W/B copies of the cube, so the spaxels
     run in slabs that keep the transient memory near
     ``max_transient_bytes`` (the JAX package's bound, ``glr.py:460-465``).
     """
+    sp, d3 = split_and_dot(precision)
     nprof, window, block = t_num.shape
     pdtype = torch.uint8 if nprof <= 255 else torch.int32
     nb = -(-nz // block)
     ny, nx = cube_fsf.shape[1:]
     s = ny * nx
     per_spaxel = (2 * nb * window + 2 * nb * block) * 4
+    if precision == "bf16x3":  # the windows' hi and lo halves
+        per_spaxel += 4 * nb * window * 4
     nslab = max(1, -(-s * per_spaxel // max_transient_bytes))
     slab = -(-s // nslab)
     total = nb * block + window - block
@@ -222,15 +245,15 @@ def toeplitz_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
 
     for s0 in range(0, s, slab):
         s1 = min(s, s0 + slab)
-        xw = windows(x_all[:, s0:s1].T)
-        nw = windows(n_all[:, s0:s1].T)
+        xw = sp(windows(x_all[:, s0:s1].T))
+        nw = sp(windows(n_all[:, s0:s1].T))
         best = torch.full((s1 - s0, nz), float("-inf"),
                           device=cube_fsf.device)
         low = torch.full((s1 - s0, nz), float("inf"), device=cube_fsf.device)
         arg = torch.zeros((s1 - s0, nz), dtype=pdtype, device=cube_fsf.device)
         for k in range(nprof):
-            num = torch.matmul(xw, t_num[k]).reshape(s1 - s0, nb * block)
-            den = torch.matmul(nw, t_den[k]).reshape(s1 - s0, nb * block)
+            num = d3(xw, sp(t_num[k])).reshape(s1 - s0, nb * block)
+            den = d3(nw, sp(t_den[k])).reshape(s1 - s0, nb * block)
             cp = num[:, :nz]
             norm = den[:, :nz]
             norm = torch.where(norm <= 0, float("inf"), torch.sqrt(norm))

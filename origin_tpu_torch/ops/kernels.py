@@ -1,0 +1,151 @@
+"""The spaxel-major GLR sweeps (port of ``origin_tpu.ops.pallas_kernels``).
+
+Two public entry points that compute the spectral sweep of
+:func:`origin_tpu_torch.ops.sweep.spectral_sweep` on spaxel-major (S, Nz)
+inputs, each with the input convention of its TPU kernel:
+
+- :func:`matched_filter_spectral` replaces ``_mf_kernel``: the profiles as
+  a right-zero-padded (K, L) bank with their 'same' ``centers``, applied
+  by direct shift-accumulate over each profile's nonzero taps;
+- :func:`banded_matmul_spectral` replaces ``_banded_kernel``: the (K, W,
+  B) banded-Toeplitz banks with their shared ``pad_left``.
+
+Both return ``(correl, correl_min, profile_idx)``, each (S, Nz), the
+indices int32, in the order of the JAX entries.  On a CUDA tensor each
+launches the spaxel-major form of the sweep kernel
+(``csrc/toeplitz_sweep.cu``) and counts the launch in its ``launches``;
+on a CPU tensor each runs its plain version.  Neither is on the step-05
+path: the JAX package keeps both as reference kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .glr import toeplitz_sweep
+from .sweep import check_tensor, launch_sweep, sweep_taps, taps_extent
+
+__all__ = ["matched_filter_spectral", "banded_matmul_spectral",
+           "matched_filter_plain", "banded_matmul_plain"]
+
+
+def _spaxel_inputs(x, n):
+    s, nz = x.shape
+    for name, t in (("x", x), ("n", n)):
+        check_tensor(name, t, torch.float32, (s, nz), x.device)
+    return s, nz
+
+
+def _outputs(s, nz, dev):
+    return (torch.empty((s, nz), dtype=torch.float32, device=dev),
+            torch.empty((s, nz), dtype=torch.float32, device=dev),
+            torch.empty((s, nz), dtype=torch.int32, device=dev))
+
+
+def matched_filter_plain(x, n, prof, prof2, centers):
+    """Plain version of :func:`matched_filter_spectral`, ``_mf_kernel``'s
+    arithmetic: per profile, shift-accumulate over the taps that are not
+    both zero, then the running max / argmax / min."""
+    prof, prof2 = prof.cpu(), prof2.cpu()  # read tap by tap
+    s, nz = x.shape
+    length = prof.shape[1]
+    left = max(centers)
+    right = max(length - 1 - c for c in centers)
+    xp = torch.nn.functional.pad(x, (left, right))
+    np_ = torch.nn.functional.pad(n, (left, right))
+    correl = torch.full((s, nz), float("-inf"), device=x.device)
+    cmin = torch.full((s, nz), float("inf"), device=x.device)
+    pidx = torch.zeros((s, nz), dtype=torch.int32, device=x.device)
+    for k, c in enumerate(centers):
+        num = torch.zeros((s, nz), device=x.device)
+        den = torch.zeros((s, nz), device=x.device)
+        for j in range(length):
+            w, w2 = float(prof[k, j]), float(prof2[k, j])
+            if w == 0.0 and w2 == 0.0:
+                continue
+            lo = left + j - c  # out[z] reads in[z + j - c]
+            num = num + w * xp[:, lo:lo + nz]
+            den = den + w2 * np_[:, lo:lo + nz]
+        norm = torch.where(den <= 0, float("inf"), torch.sqrt(den))
+        t = num / norm
+        pidx = torch.where(t > correl, k, pidx)
+        correl = torch.maximum(correl, t)
+        cmin = torch.minimum(cmin, t)
+    return correl, cmin, pidx
+
+
+def banded_matmul_plain(x, n, t_num, t_den, pad_left, nz):
+    """Plain version of :func:`banded_matmul_spectral`: the plain sweep
+    :func:`toeplitz_sweep` on the transposed inputs."""
+    s = x.shape[0]
+    c, p, m = toeplitz_sweep(x.T.reshape(nz, s, 1), n.T.reshape(nz, s, 1),
+                             t_num, t_den, pad_left, nz)
+    back = lambda a: a.reshape(nz, s).T.contiguous()
+    return back(c), back(m), back(p).to(torch.int32)
+
+
+def matched_filter_spectral(x, n, prof_bank, prof2_bank, centers):
+    """Fused spectral matched filter over a (K, L) profile bank.
+
+    ``x``, ``n``: (S, Nz) float32, spaxel-major; ``prof_bank``,
+    ``prof2_bank``: (K, L) right-zero-padded trimmed profiles and their
+    squares (``origin_tpu.ops.glr._pack_profiles``); ``centers``: the
+    'same' offset of each profile.  Returns ``(correl, correl_min,
+    profile_idx)`` of shape (S, Nz).
+    """
+    dev = x.device
+    s, nz = _spaxel_inputs(x, n)
+    centers = tuple(int(c) for c in centers)
+    prof = torch.as_tensor(prof_bank, dtype=torch.float32, device=dev)
+    prof2 = torch.as_tensor(prof2_bank, dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        return matched_filter_plain(x, n, prof, prof2, centers)
+    if dev.type != "cuda":
+        raise ValueError(f"matched_filter_spectral: unsupported device {dev}")
+    nprof, length = prof.shape
+    # row k: prof_bank[k, j] at pad_left - centers[k] + j
+    pad_left = max(centers)
+    reach = pad_left - min(centers) + length
+    taps_num = torch.zeros((nprof, reach), dtype=torch.float32, device=dev)
+    taps_den = torch.zeros_like(taps_num)
+    for k, c in enumerate(centers):
+        taps_num[k, pad_left - c:pad_left - c + length] = prof[k]
+        taps_den[k, pad_left - c:pad_left - c + length] = prof2[k]
+    correl, cmin, pidx = _outputs(s, nz, dev)
+    launch_sweep(x, n, taps_extent(taps_num, taps_den), pad_left, pidx,
+                 correl, cmin, nz, s, spaxel_major=True)
+    matched_filter_spectral.launches += 1
+    return correl, cmin, pidx
+
+
+def banded_matmul_spectral(x, n, t_num, t_den, pad_left, nz):
+    """Banded-Toeplitz spectral sweep on spaxel-major inputs.
+
+    ``x``, ``n``: (S, Nz) float32; ``t_num``, ``t_den``: the (K, W, B)
+    banks of :func:`origin_tpu_torch.ops.glr.pack_profiles_toeplitz` with
+    their shared left pad ``pad_left``.  Returns ``(correl, correl_min,
+    profile_idx)`` of shape (S, Nz).  The TPU kernel seeds its running
+    max / min with profile 0's statistic and this port with -inf / +inf;
+    the two agree, NaN included (``tests/test_torch_kernels.py``).
+    """
+    dev = x.device
+    s, nz_x = _spaxel_inputs(x, n)
+    if nz_x != nz:
+        raise ValueError(f"banded_matmul_spectral: x has {nz_x} channels, "
+                         f"nz={nz}")
+    t_num = torch.as_tensor(t_num, dtype=torch.float32, device=dev)
+    t_den = torch.as_tensor(t_den, dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        return banded_matmul_plain(x, n, t_num, t_den, pad_left, nz)
+    if dev.type != "cuda":
+        raise ValueError(f"banded_matmul_spectral: unsupported device {dev}")
+    correl, cmin, pidx = _outputs(s, nz, dev)
+    launch_sweep(x, n, sweep_taps(t_num.contiguous(), t_den.contiguous()),
+                 pad_left, pidx, correl, cmin, nz, s, spaxel_major=True)
+    banded_matmul_spectral.launches += 1
+    return correl, cmin, pidx
+
+
+#: kernel launches since the last reset (plain integers)
+matched_filter_spectral.launches = 0
+banded_matmul_spectral.launches = 0

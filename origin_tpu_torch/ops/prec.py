@@ -1,0 +1,52 @@
+"""Matmul precision of the GLR kernels (port of ``origin_tpu.ops.pallas_prec``).
+
+Two modes, named by a string:
+
+- ``"highest"``: float32 products and sums;
+- ``"bf16x3"``: each float32 operand ``a`` is split into bfloat16 halves,
+  ``a ~ hi + lo`` (:func:`split_bf16`), and ``a @ b ~ hi_a@hi_b +
+  hi_a@lo_b + lo_a@hi_b``, the dropped ``lo@lo`` term being O(eps^2):
+  about 1e-5 relative through the GLR chains.  A product of two bfloat16
+  values is exact in float32, so the plain version here forms the three
+  passes as float32 matmuls of the bfloat16-valued operands, which is what
+  a bf16 tensor-core product with float32 accumulation computes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["PRECISIONS", "check_precision", "split_bf16", "dot3",
+           "split_and_dot"]
+
+PRECISIONS = ("highest", "bf16x3")
+
+
+def check_precision(precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, "
+                         f"got {precision!r}")
+    return precision
+
+
+def split_bf16(a):
+    """Split float32 ``a`` into (hi, lo), each a bfloat16 value held in
+    float32; both roundings are to nearest even, as ``astype`` does."""
+    hi = a.to(torch.bfloat16).float()
+    lo = (a - hi).to(torch.bfloat16).float()
+    return hi, lo
+
+
+def dot3(a, b):
+    """The 3-pass product of split operands ``a = (hi, lo)``, ``b = (hi,
+    lo)``, summed as ``origin_tpu.ops.pallas_prec.make_dot`` sums it."""
+    return a[0] @ b[0] + a[0] @ b[1] + a[1] @ b[0]
+
+
+
+def split_and_dot(precision):
+    """``(split, dot)`` of a precision: ``dot(split(a), split(b))`` is
+    ``a @ b`` in it (the identity and ``torch.matmul`` at ``highest``)."""
+    if check_precision(precision) == "bf16x3":
+        return split_bf16, dot3
+    return (lambda a: a), torch.matmul

@@ -12,7 +12,7 @@ import logging
 import numpy as np
 import torch
 
-from origin_tpu.core.table import Table
+from ..core.table import Table
 
 __all__ = [
     "counts_above_thresholds",

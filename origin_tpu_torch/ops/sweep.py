@@ -4,8 +4,10 @@
 the plain version (:func:`origin_tpu_torch.ops.glr.toeplitz_sweep`); a
 CUDA tensor goes to the hand-written kernel ``csrc/toeplitz_sweep.cu``,
 which replaces the TPU kernel ``_sweep_kernel``
-(``origin_tpu/ops/pallas_sweep.py``).  There is no fallback between the
-two: a failed build or launch raises.
+(``origin_tpu/ops/pallas_sweep.py``), at ``precision="highest"`` or in
+its ``"bf16x3"`` form.  There is no fallback between the two: a failed
+build or launch raises.  :func:`launch_sweep` is the launch that the
+spaxel-major entries of :mod:`origin_tpu_torch.ops.kernels` share.
 
 The kernel reads the FSF-convolved cube and the norm cube in their own
 (Nz, Ny*Nx) layout and takes the taps of each profile from column 0 of
@@ -19,8 +21,10 @@ import ctypes
 import torch
 
 from .glr import toeplitz_sweep
+from .prec import check_precision
 
-__all__ = ["spectral_sweep", "sweep_taps"]
+__all__ = ["spectral_sweep", "sweep_taps", "taps_extent", "launch_sweep",
+           "check_tensor"]
 
 
 def sweep_taps(t_num, t_den):
@@ -35,8 +39,14 @@ def sweep_taps(t_num, t_den):
     """
     nprof, window, block = t_num.shape
     reach = window - block + 1
-    taps_num = t_num[:, :reach, 0].contiguous()
-    taps_den = t_den[:, :reach, 0].contiguous()
+    return taps_extent(t_num[:, :reach, 0].contiguous(),
+                       t_den[:, :reach, 0].contiguous())
+
+
+def taps_extent(taps_num, taps_den):
+    """``(taps_num, taps_den, start, length)``: (K,) int32 extents of the
+    nonzero span of each row of the (K, reach) taps, on their device."""
+    reach = taps_num.shape[1]
     nonzero = (taps_num != 0) | (taps_den != 0)
     first = torch.argmax(nonzero.to(torch.int32), dim=1)
     last = reach - 1 - torch.argmax(nonzero.flip(1).to(torch.int32), dim=1)
@@ -45,7 +55,9 @@ def sweep_taps(t_num, t_den):
             length.to(torch.int32).contiguous())
 
 
-def _check(name, t, dtype, shape, device):
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless ``t`` has this device, dtype and shape and is
+    contiguous: what a kernel's wrapper checks before a launch."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -63,7 +75,7 @@ def _library():
     lib = load_library("toeplitz_sweep")
     if not getattr(lib, "_origin_typed", False):
         fn = lib.toeplitz_sweep_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.toeplitz_sweep_error_string.argtypes = [ctypes.c_int]
@@ -72,19 +84,56 @@ def _library():
     return lib
 
 
-def spectral_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz):
+def launch_sweep(x, n, taps, pad_left, profile, correl, cmin, nz, s,
+                 precision="highest", spaxel_major=False):
+    """Launch the sweep kernel on the current stream.
+
+    ``taps`` is ``(taps_num, taps_den, start, length)`` of
+    :func:`taps_extent`; ``x``, ``n`` and the three outputs are (nz, s),
+    or (s, nz) when ``spaxel_major``.  Raises on a failed launch.
+    """
+    taps_num, taps_den, start, length = taps
+    nprof, reach = taps_num.shape
+    if not 0 <= int(pad_left) < reach:
+        raise ValueError(f"pad_left={pad_left} outside the taps' reach")
+    if nz * s >= 2 ** 31:
+        raise ValueError("sweep: cube exceeds 2^31 voxels")
+    lib = _library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.toeplitz_sweep_launch(
+            x.data_ptr(), n.data_ptr(), taps_num.data_ptr(),
+            taps_den.data_ptr(), start.data_ptr(), length.data_ptr(),
+            correl.data_ptr(), profile.data_ptr(), cmin.data_ptr(),
+            int(nz), int(s), int(nprof), int(reach), int(pad_left),
+            profile.element_size(), int(precision == "bf16x3"),
+            int(spaxel_major), stream,
+        )
+    if err != 0:
+        msg = lib.toeplitz_sweep_error_string(err).decode()
+        raise RuntimeError(f"toeplitz_sweep kernel launch failed: {msg} "
+                           f"(cudaError {err})")
+
+
+def spectral_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
+                   precision="highest"):
     """GLR spectral sweep with running max / argmax / min over profiles.
 
     Same signature and outputs as ``toeplitz_sweep_pallas``: (Nz, Ny, Nx)
     float32 cubes and the (K, W, block) float32 banks in; ``(correl,
     profile, correl_min)`` out, each (Nz, Ny, Nx), profile indices uint8
-    for K <= 255 and int32 above.  On a CPU tensor this is the plain
-    version; on a CUDA tensor it launches the kernel (and counts the
-    launch in ``spectral_sweep.launches``).
+    for K <= 255 and int32 above; ``precision`` ``"highest"`` or
+    ``"bf16x3"``.  On a CPU tensor this is the plain version; on a CUDA
+    tensor it launches the kernel and counts the launch in
+    ``spectral_sweep.launches`` (``highest``) or
+    ``spectral_sweep.launches_bf16x3``.
     """
+    check_precision(precision)
     dev = cube_fsf.device
     if dev.type == "cpu":
-        return toeplitz_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz)
+        return toeplitz_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
+                              precision=precision)
     if dev.type != "cuda":
         raise ValueError(f"spectral_sweep: unsupported device {dev}")
 
@@ -92,39 +141,24 @@ def spectral_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz):
     ny, nx = cube_fsf.shape[1:]
     s = ny * nx
     shape = (nz, ny, nx)
-    _check("cube_fsf", cube_fsf, torch.float32, shape, dev)
-    _check("norm_fsf", norm_fsf, torch.float32, shape, dev)
-    _check("t_num", t_num, torch.float32, (nprof, window, block), dev)
-    _check("t_den", t_den, torch.float32, (nprof, window, block), dev)
-    if not 0 <= int(pad_left) < window - block + 1:
-        raise ValueError(f"pad_left={pad_left} outside the bank's reach")
-    if nz * s >= 2 ** 31:
-        raise ValueError("spectral_sweep: cube exceeds 2^31 voxels")
+    check_tensor("cube_fsf", cube_fsf, torch.float32, shape, dev)
+    check_tensor("norm_fsf", norm_fsf, torch.float32, shape, dev)
+    check_tensor("t_num", t_num, torch.float32, (nprof, window, block), dev)
+    check_tensor("t_den", t_den, torch.float32, (nprof, window, block), dev)
 
-    taps_num, taps_den, start, length = sweep_taps(t_num, t_den)
-    reach = taps_num.shape[1]
     pdtype = torch.uint8 if nprof <= 255 else torch.int32
     correl = torch.empty(shape, dtype=torch.float32, device=dev)
     profile = torch.empty(shape, dtype=pdtype, device=dev)
     cmin = torch.empty(shape, dtype=torch.float32, device=dev)
-
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.toeplitz_sweep_launch(
-            cube_fsf.data_ptr(), norm_fsf.data_ptr(), taps_num.data_ptr(),
-            taps_den.data_ptr(), start.data_ptr(), length.data_ptr(),
-            correl.data_ptr(), profile.data_ptr(), cmin.data_ptr(),
-            int(nz), int(s), int(nprof), int(reach), int(pad_left),
-            profile.element_size(), stream,
-        )
-    if err != 0:
-        msg = lib.toeplitz_sweep_error_string(err).decode()
-        raise RuntimeError(f"toeplitz_sweep kernel launch failed: {msg} "
-                           f"(cudaError {err})")
-    spectral_sweep.launches += 1
+    launch_sweep(cube_fsf, norm_fsf, sweep_taps(t_num, t_den), pad_left,
+                 profile, correl, cmin, nz, s, precision=precision)
+    if precision == "bf16x3":
+        spectral_sweep.launches_bf16x3 += 1
+    else:
+        spectral_sweep.launches += 1
     return correl, profile, cmin
 
 
-#: kernel launches since the last reset (a plain integer)
+#: kernel launches since the last reset (plain integers), per precision
 spectral_sweep.launches = 0
+spectral_sweep.launches_bf16x3 = 0

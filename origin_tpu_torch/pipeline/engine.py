@@ -14,6 +14,9 @@ exists for a slow TPU host link and is not ported.
 
 from __future__ import annotations
 
+import logging
+import os
+
 import numpy as np
 import torch
 
@@ -29,6 +32,7 @@ from ..ops.glr import (
 )
 from ..ops.localmax import compute_local_max
 from ..ops.pca import greedy_pca
+from ..ops.spatial import spatial_fsf, spatial_kernel_admits
 from ..ops.stats import o2test, standardize
 from ..ops.sweep import spectral_sweep
 from .products import TensorCube
@@ -77,6 +81,22 @@ class TorchEngine:
         self._inputs = {}
 
     # -- inputs ------------------------------------------------------------
+    @staticmethod
+    def _kernel_precision():
+        """Matmul precision of the GLR kernels (``_pallas_precision`` of
+        the JAX engine): ``ORIGIN_TPU_PRECISION=bf16x3`` selects the
+        3-pass bf16 scheme, and ``highest`` (the default) float32; any
+        other value warns and means ``highest``."""
+        mode = os.environ.get("ORIGIN_TPU_PRECISION", "highest").lower()
+        if mode == "bf16x3":
+            return "bf16x3"
+        if mode not in ("highest", ""):
+            logging.getLogger(__name__).warning(
+                "unknown ORIGIN_TPU_PRECISION=%r (valid: highest, bf16x3); "
+                "using highest", mode,
+            )
+        return "highest"
+
     def _upload(self, arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
@@ -224,8 +244,9 @@ class TorchEngine:
 
         Instrument-model precompute (FSF spectra + norm cube), spatial FSF
         stage, the spectral sweep (:func:`spectral_sweep`: the CUDA kernel
-        on a GPU), masking, local extrema and the max/min maps.  Returns
-        (device dict, host dict with the maxmap/minmap images).
+        on a GPU) at the session's precision (:meth:`_kernel_precision`),
+        masking, local extrema and the max/min maps.  Returns (device
+        dict, host dict with the maxmap/minmap images).
         """
         faint = self.get("cube_faint")
         nz, ny, nx = faint.shape
@@ -255,16 +276,26 @@ class TorchEngine:
                 ny, nx, fshape2, psfs.shape[-2:]).items()
         }
 
+        prec = self._kernel_precision()
         kern_hats, norm_fsf = precompute_spatial(self._upload(psfs), wmaps,
                                                  ny, nx, fshape2)
         kern_r = kern_hats.real.contiguous()
         kern_i = kern_hats.imag.contiguous()
         del kern_hats
-        cube_fsf = glr_spatial_matmul(faint, kern_r, kern_i, wmaps, factors)
+        # the JAX engine's route (engine.py:1025-1032): the fused spatial
+        # kernel only in bf16x3 and only on a field it admits, else the
+        # float32 matmul chain (XLA there, cuBLAS here); not a fallback
+        if prec == "bf16x3" and spatial_kernel_admits(
+                ny, nx, fshape2[0], fshape2[1] // 2 + 1):
+            cube_fsf = spatial_fsf(faint.contiguous(), kern_r, kern_i, wmaps,
+                                   factors, precision=prec)
+        else:
+            cube_fsf = glr_spatial_matmul(faint, kern_r, kern_i, wmaps,
+                                          factors)
         del kern_r, kern_i
         correl, profile, correl_min = spectral_sweep(
             cube_fsf.contiguous(), norm_fsf, self._upload(t_num),
-            self._upload(t_den), pad_left, nz)
+            self._upload(t_den), pad_left, nz, precision=prec)
         del cube_fsf, norm_fsf
         (correl, correl_min, profile, lmax, lmin, maxmap,
          minmap) = _mask_extrema(correl, correl_min, profile,

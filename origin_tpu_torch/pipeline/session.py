@@ -18,12 +18,11 @@ from logging.handlers import RotatingFileHandler
 
 import numpy as np
 
-from origin_tpu import fitsio
-from origin_tpu.core.containers import Cube
-from origin_tpu.core.fsf import FieldsMap, read_fsf_from_header
-from origin_tpu.core.profiles import default_dictionary_path, load_dictionary
-from origin_tpu.version import version as __version__
-
+from .. import fitsio
+from ..core.containers import Cube
+from ..core.fsf import FieldsMap, read_fsf_from_header
+from ..core.profiles import default_dictionary_path, load_dictionary
+from ..version import version as __version__
 from . import steps as steps_mod
 from .engine import TorchEngine
 

@@ -17,9 +17,8 @@ from enum import Enum, auto
 import numpy as np
 from scipy import ndimage as ndi
 
-from origin_tpu.core.containers import Image
-from origin_tpu.core.table import Table, vstack
-
+from ..core.containers import Image
+from ..core.table import Table, vstack
 from ..detect import (
     area_growing,
     area_segmentation_convex_fusion,

@@ -7,17 +7,30 @@ installed, with the repository's conftest (which imports JAX) left out:
 Tolerances: the kernel and the plain sweep sum the profile taps in
 different orders, so correl and correl_min agree at atol 1e-5 + rtol
 1e-5, and the best-profile index may differ only where the two candidate
-profiles' statistics are within 1e-5 of each other.
+profiles' statistics are within 1e-5 of each other.  The spatial kernel
+sums its products in 64 x 64 tiles, cuBLAS in its own order: atol 1e-5 on
+values of order 1 in both precisions (in bf16x3 a one-ulp difference of a
+float32 intermediate can also move a split's low half by one bf16 step; the
+largest reading on an H100 is 4.65e-6).  bf16x3 and ``highest`` differ by
+about as much at their largest, so the split itself is shown by RMS
+distances: the bf16x3 kernel lies at least 4 times the ``highest`` kernel's
+float32 order noise away from the ``highest`` kernel, and at least 1.5
+times nearer its own plain version (a one-ulp change upstream moves a split
+by a bf16 step, so the two bf16x3 forms part by about half the gap).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from origin_tpu.core.profiles import (
+from origin_tpu_torch.core import MoffatFSF
+from origin_tpu_torch.core.profiles import (
     DICO_3FWHM, DICO_FWHM_2_12, default_dictionary_path, load_dictionary,
 )
-from origin_tpu_torch.ops import glr
+from origin_tpu_torch.ops import glr, kernels
+from origin_tpu_torch.ops.convolve import fft2_shape
+from origin_tpu_torch.ops.prec import split_bf16
+from origin_tpu_torch.ops.spatial import spatial_fsf
 from origin_tpu_torch.ops.sweep import spectral_sweep, sweep_taps
 
 torch.set_num_threads(2)
@@ -42,6 +55,35 @@ def _problem(dico, nz, ny, nx, dev, seed=6):
         pad_left
 
 
+def _dot64(a, taps, precision):
+    """``sum(a * taps)`` in float64 of the products the kernel forms: the
+    float32 operands, or the three bf16x3 passes."""
+    if precision != "bf16x3":
+        return float((a.double() * taps.double()).sum())
+    (ah, al), (th, tl) = (tuple(v.double() for v in split_bf16(u))
+                          for u in (a, taps))
+    return float((ah * th + al * th + ah * tl).sum())
+
+
+def _assert_ties(p, pr, x, n, t_num, t_den, pad_left, precision="highest"):
+    """(Nz, Ny, Nx) index cubes equal except at near-ties of the
+    statistic that both sides compute at ``precision``."""
+    bad = (p != pr).nonzero()
+    if bad.numel():
+        taps_num, taps_den, _, _ = sweep_taps(t_num, t_den)
+        xs = torch.nn.functional.pad(x, (0, 0, 0, 0, pad_left,
+                                         taps_num.shape[1]))
+        ns = torch.nn.functional.pad(n, (0, 0, 0, 0, pad_left,
+                                         taps_num.shape[1]))
+        for z, yy, xx in bad.tolist():
+            win_x = xs[z:z + taps_num.shape[1], yy, xx]
+            win_n = ns[z:z + taps_num.shape[1], yy, xx]
+            t = [_dot64(win_x, taps_num[k], precision)
+                 / _dot64(win_n, taps_den[k], precision) ** 0.5
+                 for k in (int(p[z, yy, xx]), int(pr[z, yy, xx]))]
+            assert abs(t[0] - t[1]) <= 1e-5
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dico", [DICO_3FWHM, DICO_FWHM_2_12])
 @pytest.mark.parametrize("shape", [(700, 20, 30), (77, 3, 5)])
@@ -57,20 +99,124 @@ def test_cuda_kernel_matches_plain(cuda, dico, shape):
     torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5)
     assert p.dtype == pr.dtype == torch.uint8
     assert torch.all(c[:, 0, 0] == 0)
-    bad = (p != pr).nonzero()
-    if bad.numel():
-        taps_num, taps_den, _, _ = sweep_taps(t_num, t_den)
-        xs = torch.nn.functional.pad(x.double(), (0, 0, 0, 0, pad_left,
-                                                  taps_num.shape[1]))
-        ns = torch.nn.functional.pad(n.double(), (0, 0, 0, 0, pad_left,
-                                                  taps_num.shape[1]))
-        for z, yy, xx in bad.tolist():
-            win_x = xs[z:z + taps_num.shape[1], yy, xx]
-            win_n = ns[z:z + taps_num.shape[1], yy, xx]
-            t = [float((win_x * taps_num[k].double()).sum()
-                       / (win_n * taps_den[k].double()).sum().sqrt())
-                 for k in (int(p[z, yy, xx]), int(pr[z, yy, xx]))]
-            assert abs(t[0] - t[1]) <= 1e-5
+    _assert_ties(p, pr, x, n, t_num, t_den, pad_left)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dico", [DICO_3FWHM, DICO_FWHM_2_12])
+@pytest.mark.parametrize("shape", [(700, 20, 30), (77, 3, 5)])
+def test_cuda_bf16x3_sweep_matches_plain(cuda, dico, shape):
+    nz = shape[0]
+    (x, n, t_num, t_den), pad_left = _problem(dico, *shape, cuda)
+    before = spectral_sweep.launches_bf16x3
+    c, p, m = spectral_sweep(x, n, t_num, t_den, pad_left, nz,
+                             precision="bf16x3")
+    torch.cuda.synchronize()
+    assert spectral_sweep.launches_bf16x3 == before + 1
+    cr, pr, mr = glr.toeplitz_sweep(x, n, t_num, t_den, pad_left, nz,
+                                    precision="bf16x3")
+    torch.testing.assert_close(c, cr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5)
+    assert p.dtype == pr.dtype == torch.uint8
+    _assert_ties(p, pr, x, n, t_num, t_den, pad_left, "bf16x3")
+
+
+def _spatial_problem(nz, ny, nx, psf, nfields, dev, seed=2):
+    rng = np.random.default_rng(seed)
+    cube = rng.normal(size=(nz, ny, nx)).astype(np.float32)
+    fsf = MoffatFSF(fwhm_pol=[-0.2, 0.7], beta_pol=[2.8], pixstep=0.2)
+    one = fsf.get_3darray(4750 + 1.25 * np.arange(nz), (psf, psf))
+    psfs = np.stack([one * (1 + 0.1 * f) for f in range(nfields)])
+    wmaps = (None if nfields == 1 else torch.from_numpy(rng.uniform(
+        0.2, 1.0, size=(nfields, ny, nx)).astype(np.float32)).to(dev))
+    fshape2 = fft2_shape((ny, nx), (psf, psf))
+    kern_hats, _ = glr.precompute_spatial(
+        torch.from_numpy(psfs.astype(np.float32)).to(dev), wmaps, ny, nx,
+        fshape2)
+    factors = {k: torch.from_numpy(v).to(dev) for k, v in
+               glr.dft_spatial_factors(ny, nx, fshape2, (psf, psf)).items()}
+    return (torch.from_numpy(cube).to(dev), kern_hats.real.contiguous(),
+            kern_hats.imag.contiguous(), wmaps, factors)
+
+
+SPATIAL_CASES = [
+    dict(shape=(37, 20, 28), psf=7, nfields=1),
+    dict(shape=(19, 16, 24), psf=5, nfields=2),
+    dict(shape=(40, 100, 200), psf=25, nfields=1),
+    dict(shape=(6, 300, 300), psf=25, nfields=1),
+    dict(shape=(5, 440, 60), psf=25, nfields=1),  # kx tiles of 16
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("case", SPATIAL_CASES)
+def test_cuda_spatial_matches_plain(cuda, precision, case):
+    args = _spatial_problem(*case["shape"], case["psf"], case["nfields"],
+                            cuda)
+    before = spatial_fsf.launches
+    out = spatial_fsf(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert spatial_fsf.launches == before + case["nfields"]
+    ref = glr.glr_spatial_matmul(*args, precision=precision)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def _rms(t):
+    return float(t.double().square().mean().sqrt())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPATIAL_CASES)
+def test_cuda_spatial_bf16x3_splits(cuda, case):
+    args = _spatial_problem(*case["shape"], case["psf"], case["nfields"],
+                            cuda)
+    got = spatial_fsf(*args, precision="bf16x3")
+    plain = glr.glr_spatial_matmul(*args, precision="bf16x3")
+    highest = spatial_fsf(*args, precision="highest")
+    noise = _rms(highest - glr.glr_spatial_matmul(*args))
+    sep = _rms(got - highest)
+    print(f"RMS: noise {noise:.3g}, from plain {_rms(got - plain):.3g}, "
+          f"from highest {sep:.3g}")
+    assert sep >= 4 * noise
+    assert sep >= 1.5 * _rms(got - plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["banded", "matched_filter"])
+def test_cuda_spaxel_major_sweeps_match_plain(cuda, entry):
+    nz = 700
+    (x, n, t_num, t_den), pad_left = _problem(DICO_FWHM_2_12, nz, 20, 30,
+                                              cuda)
+    xs = x.reshape(nz, -1).T.contiguous()
+    ns = n.reshape(nz, -1).T.contiguous()
+    if entry == "banded":
+        fn = kernels.banded_matmul_spectral
+        before = fn.launches
+        c, m, p = fn(xs, ns, t_num, t_den, pad_left, nz)
+        cr, mr, pr = kernels.banded_matmul_plain(xs, ns, t_num, t_den,
+                                                 pad_left, nz)
+    else:
+        profiles, _ = load_dictionary(default_dictionary_path(DICO_FWHM_2_12))
+        prepped = glr.prepare_profiles(profiles)
+        length = max(len(q) for q, _ in prepped)
+        bank = np.zeros((len(prepped), length), np.float32)
+        for k, (q, _) in enumerate(prepped):
+            bank[k, :len(q)] = q
+        centers = [c for _, c in prepped]
+        fn = kernels.matched_filter_spectral
+        before = fn.launches
+        c, m, p = fn(xs, ns, bank, bank ** 2, centers)
+        cr, mr, pr = kernels.matched_filter_plain(
+            xs, ns, torch.from_numpy(bank), torch.from_numpy(bank ** 2),
+            centers)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(c, cr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5)
+    assert p.dtype == pr.dtype == torch.int32
+    back = lambda a: a.T.reshape(x.shape)
+    _assert_ties(back(p), back(pr), x, n, t_num, t_den, pad_left)
 
 
 @pytest.mark.gpu

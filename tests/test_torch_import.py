@@ -1,10 +1,15 @@
-"""The torch port imports neither jax nor yaml, and its device is explicit."""
+"""The torch port imports nothing of jax, yaml or the JAX package; its
+device is explicit; its copies of the JAX package's host substrate
+(``core``, ``fitsio``, ``native``, the dictionaries and the synthetic
+cubes of ``tools_torch/synthetic.py``) behave as the originals do."""
 
 import os
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(2)
@@ -15,25 +20,41 @@ TESTS = os.path.join(REPO, "tests")
 
 def test_port_runs_without_jax_or_yaml(tmp_path):
     code = textwrap.dedent(f"""
-        import sys
+        import os, sys
         sys.modules["jax"] = None
         sys.modules["yaml"] = None
-        sys.path[:0] = [{REPO!r}, {TESTS!r}]
+        sys.modules["origin_tpu"] = None
+        sys.path[:0] = [{REPO!r}]
         import torch
         torch.set_num_threads(2)
         import origin_tpu_torch.pipeline.session as session
         import origin_tpu_torch.convert, origin_tpu_torch.ops.sweep
-        import origin_tpu_torch.ops.build
-        from make_minicube import make_minicube
+        import origin_tpu_torch.ops.build, origin_tpu_torch.ops.kernels
+        import origin_tpu_torch.ops.spatial
+        from tools_torch.synthetic import make_minicube, make_segmap
 
-        path = {str(tmp_path / "tiny.fits")!r}
-        make_minicube(path, nz=40, ny=10, nx=12)
-        orig = session.ORIGIN.init(path, device="cpu", path={str(tmp_path)!r},
-                                   name="tiny", loglevel="WARNING")
-        assert orig.engine.device.type == "cpu"
-        assert orig.shape == (40, 10, 12)
-        assert orig.engine.input_cube().device.type == "cpu"
-        orig.close_logfile()
+        path = {str(tmp_path / "mini.fits")!r}
+        seg = {str(tmp_path / "seg.fits")!r}
+        make_minicube(path)
+        make_segmap(seg)
+        counts = {{}}
+        for prec in ("highest", "bf16x3"):
+            os.environ["ORIGIN_TPU_PRECISION"] = prec
+            orig = session.ORIGIN.init(path, device="cpu",
+                                       path={str(tmp_path)!r}, name=prec,
+                                       loglevel="WARNING")
+            assert orig.engine.device.type == "cpu"
+            assert orig.engine.input_cube().device.type == "cpu"
+            orig.step01_preprocessing()
+            orig.step02_areas(minsize=30, maxsize=60)
+            orig.step03_compute_PCA_threshold()
+            orig.step04_compute_greedy_PCA()
+            orig.step05_compute_TGLR()
+            orig.step06_compute_purity_threshold(purity=0.8)
+            orig.step07_detection(segmap=seg)
+            counts[prec] = (len(orig.Cat0), len(orig.Cat1))
+            orig.close_logfile()
+        assert counts == {{"highest": (15, 14), "bf16x3": (15, 14)}}, counts
         if not torch.cuda.is_available():
             try:
                 session.ORIGIN.init(path, device="cuda",
@@ -42,13 +63,13 @@ def test_port_runs_without_jax_or_yaml(tmp_path):
                 assert "cuda" in str(exc)
             else:
                 raise AssertionError("device='cuda' did not raise")
-        loaded = [m for m, v in sys.modules.items()
-                  if v is not None and (m == "jax" or m.startswith("jax."))]
+        loaded = [m for m, v in sys.modules.items() if v is not None
+                  and m.split(".")[0] in ("jax", "yaml", "origin_tpu")]
         assert not loaded, loaded
         print("PORT-OK")
     """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300, cwd=str(tmp_path))
+                         text=True, timeout=600, cwd=str(tmp_path))
     assert res.returncode == 0, res.stderr[-3000:]
     assert "PORT-OK" in res.stdout
 
@@ -89,3 +110,122 @@ def test_device_is_explicit():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device("cuda")
+
+
+# -- the port's copies against the JAX package's originals -------------------
+def test_dictionaries_load_equal():
+    from origin_tpu.core import profiles as jprof
+    from origin_tpu_torch.core import profiles as tprof
+
+    for name in (tprof.DICO_3FWHM, tprof.DICO_FWHM_2_12):
+        path = tprof.default_dictionary_path(name)
+        assert path.startswith(os.path.join(REPO, "origin_tpu_torch"))
+        ours, fwhm = tprof.load_dictionary(path)
+        ref, rfwhm = jprof.load_dictionary(jprof.default_dictionary_path(name))
+        assert len(ours) == len(ref) and len(ours) in (3, 20)
+        for a, b in zip(ours, ref):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(fwhm, rfwhm)
+
+
+def test_fsf_header_and_fields_map_read_back_equal(tmp_path):
+    from origin_tpu.core import Cube as JCube
+    from origin_tpu.core import FieldsMap as JFieldsMap
+    from origin_tpu.core import read_fsf_from_header as jread
+    from origin_tpu_torch.core import Cube, FieldsMap, read_fsf_from_header
+    from tools_torch.synthetic import make_minicube
+
+    path = str(tmp_path / "cube.fits")
+    make_minicube(path, nz=30, ny=12, nx=14)
+    ours, ref = Cube(path), JCube(path)
+    np.testing.assert_array_equal(np.asarray(ours.data),
+                                  np.asarray(ref.data))
+    lbda = ours.wave.coord()
+    np.testing.assert_array_equal(lbda, ref.wave.coord())
+    fsf = read_fsf_from_header(ours.primary_header, pixstep=0.2)
+    jfsf = jread(ref.primary_header, pixstep=0.2)
+    np.testing.assert_array_equal(fsf.get_3darray(lbda, (25, 25)),
+                                  jfsf.get_3darray(lbda, (25, 25)))
+    np.testing.assert_array_equal(fsf.get_fwhm(lbda, unit="pix"),
+                                  jfsf.get_fwhm(lbda, unit="pix"))
+    fmap = np.zeros((12, 14), int)
+    fmap[:, :8], fmap[4:, 6:] = 1, 2
+    for a, b in zip(FieldsMap(data=fmap, nfields=2).compute_weights(),
+                    JFieldsMap(data=fmap, nfields=2).compute_weights()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_table_vstack_and_join_equal():
+    from origin_tpu.core import Table as JTable
+    from origin_tpu.core import join as jjoin
+    from origin_tpu.core import vstack as jvstack
+    from origin_tpu_torch.core import Table, join, vstack
+
+    cols = dict(ID=np.array([3, 1, 2]), x=np.array([0.5, 1.5, 2.5]))
+    more = dict(ID=np.array([4]), y=np.array([7], np.int32))
+    right = dict(ID=np.array([2, 3, 9]), flux=np.array([10.0, 20.0, 30.0]))
+    for got, ref in (
+            (vstack([Table(cols), Table(more), Table()]),
+             jvstack([JTable(cols), JTable(more), JTable()])),
+            (join(Table(cols), Table(right)),
+             jjoin(JTable(cols), JTable(right)))):
+        assert got.colnames == ref.colnames
+        for name in got.colnames:
+            a, b = np.asarray(got[name]), np.asarray(ref[name])
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_native_fof_gives_the_same_groups():
+    from origin_tpu import native as jnative
+    from origin_tpu_torch import native
+    from origin_tpu_torch.detect.merging import _merge_groups_py
+
+    rng = np.random.default_rng(3)
+    x, y = rng.uniform(0, 40, 300), rng.uniform(0, 40, 300)
+    z = rng.uniform(0, 500, 300)
+    ours = native.fof_merge_groups(x, y, z, 3.0, 7.0)
+    assert ours is not None, "the port's native FoF did not build"
+    assert str(native.BUILD_DIR) in native.get_lib()._name
+    np.testing.assert_array_equal(ours,
+                                  jnative.fof_merge_groups(x, y, z, 3.0, 7.0))
+    np.testing.assert_array_equal(ours, _merge_groups_py(x, y, z, 3.0, 7.0))
+
+
+@pytest.mark.parametrize("which", ["minicube", "field"])
+def test_synthetic_cubes_are_bit_identical(which, tmp_path):
+    from make_minicube import make_minicube as jmini
+    from tools_torch import synthetic
+
+    if which == "minicube":
+        ours = synthetic.make_minicube(nz=60, ny=20, nx=24)
+        ref = jmini(nz=60, ny=20, nx=24)
+    else:
+        bench = _load_bench_e2e()
+        ours, lines = synthetic.make_field(200, 30, 40, seed=7, n_cont=3,
+                                           n_faint=4, n_bright=2)
+        ref, rlines = bench.make_field(200, 30, 40, seed=7, n_cont=3,
+                                       n_faint=4, n_bright=2)
+        assert lines == rlines
+    for name in ("data", "var"):
+        a = np.asarray(getattr(ours, name))
+        b = np.asarray(getattr(ref, name))
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    assert list(ours.primary_header.items()) == \
+        list(ref.primary_header.items())
+    a, b = str(tmp_path / "ours.fits"), str(tmp_path / "ref.fits")
+    ours.write(a)
+    ref.write(b)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+
+
+def _load_bench_e2e():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_e2e", os.path.join(REPO, "tools", "bench_e2e.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

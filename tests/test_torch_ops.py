@@ -315,9 +315,9 @@ def test_state_from_numpy():
 def test_inputs_derived_on_device_match_host_views(tmp_path):
     """A cube without NaNs uploads its raw data and variance and derives
     the filled views on the device; they equal the host views."""
-    from origin_tpu.core import Cube
-    from make_minicube import make_minicube
+    from origin_tpu_torch.core import Cube
     from origin_tpu_torch.pipeline.session import ORIGIN
+    from tools_torch.synthetic import make_minicube
 
     base = make_minicube(None, nz=40, ny=10, nx=12)
     data = np.nan_to_num(base.data, nan=0.5)

@@ -22,6 +22,7 @@ Usage: python3 tools_torch/field_step04.py [--refs oracle,jax,jax_full_budget]
 """
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
@@ -99,8 +100,11 @@ def main():
     import chip_smoke
     from origin_tpu_torch.pipeline.session import ORIGIN
 
-    bench = chip_smoke._load_file("bench_e2e", os.path.join(REPO, "tools",
-                                                            "bench_e2e.py"))
+    # the JAX package's own generator: this tool runs the JAX reference
+    spec = importlib.util.spec_from_file_location(
+        "bench_e2e", os.path.join(REPO, "tools", "bench_e2e.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
     cube, _ = bench.make_field(args.nz, args.ny, args.nx, seed=7)
     work = os.path.join(REPO, "build", "field_step04")
     os.makedirs(work, exist_ok=True)

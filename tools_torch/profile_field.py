@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Per-step device profile of origin_tpu_torch's steps 01-07 on one GPU.
 
-Runs steps 01-07 on the synthetic 3681x100x200 field of tools/bench_e2e.py
+Runs steps 01-07 on the synthetic 3681x100x200 field (tools_torch/synthetic.py)
 (seed 7, default parameters, purity 0.8) twice: once cold, once warm under
 ``torch.profiler``.  For each step of the warm run it prints the host wall
 (with the device drained at both ends), the device-busy time (the union of
 the GPU kernel and memcpy intervals inside the step's window) and the idle
 share ``1 - busy / wall``; then the device ops with the most device time.
-Writes chiprun_out/profile_field.json and the Chrome trace
-chiprun_out/profile_field_trace.json.
+Writes chiprun_out/profile_field_<mode>.json and the Chrome trace
+chiprun_out/profile_field_<mode>_trace.json, <mode> the precision.
 
-Usage: python3 tools_torch/profile_field.py
+Usage: python3 tools_torch/profile_field.py  (with ORIGIN_TPU_PRECISION=bf16x3
+in the environment for the bf16x3 mode)
 """
 
 import json
@@ -38,10 +39,9 @@ def main():
     sys.path.insert(0, REPO)
     import chip_smoke
     from origin_tpu_torch.pipeline.session import ORIGIN
+    from tools_torch.synthetic import make_field
 
-    bench = chip_smoke._load_file("bench_e2e", os.path.join(REPO, "tools",
-                                                            "bench_e2e.py"))
-    cube, _ = bench.make_field(*chip_smoke.FIELD, seed=7)
+    cube, _ = make_field(*chip_smoke.FIELD, seed=7)
     os.makedirs(chip_smoke.WORK, exist_ok=True)
 
     def run(name, traced):
@@ -88,7 +88,9 @@ def main():
 
     card = os.popen("nvidia-smi --query-gpu=name,power.limit "
                     "--format=csv,noheader").read().strip()
+    mode = os.environ.get("ORIGIN_TPU_PRECISION") or "highest"
     print(card)
+    print(f"ORIGIN_TPU_PRECISION={mode}")
     print("step    cold_s   warm_s  device_busy_s  idle_share")
     for name in chip_smoke.STEP_NAMES:
         s = steps[name]
@@ -103,11 +105,13 @@ def main():
         print(f"  {us / 1e3:9.3f}  {n:6d}  {key[:100]}")
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_field.json"), "w") as fh:
-        json.dump(dict(card=card, cold=cold, warm=warm, steps=steps,
+    with open(os.path.join(out, f"profile_field_{mode}.json"), "w") as fh:
+        json.dump(dict(card=card, precision=mode, cold=cold, warm=warm,
+                       steps=steps,
                        ops=[dict(name=k, device_ms=us / 1e3, count=n)
                             for k, us, n in ops]), fh, indent=1)
-    prof.export_chrome_trace(os.path.join(out, "profile_field_trace.json"))
+    prof.export_chrome_trace(
+        os.path.join(out, f"profile_field_{mode}_trace.json"))
 
 
 if __name__ == "__main__":
