@@ -7,10 +7,12 @@ Phases, each fatal on failure:
    power limit as ``nvidia-smi`` reports them;
 2. build every CUDA source of ``origin_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together) and print each one's ptxas register and
-   spill lines;
+   spill lines; ptxas fails the build of any kernel that spills or uses
+   local memory (``ops/build.py:NVCC_FLAGS``), so the sweep kernel's
+   register blocking holds;
 3. hold the GLR sweep kernel against its plain torch version on the card
-   at 3681 x 100 x 200 for the 3- and 20-profile dictionaries, and time
-   both with CUDA events;
+   at 3681 x 100 x 200 for the 3- and 20-profile dictionaries, time both
+   with CUDA events, and print the kernel's share of its bound;
 4. steps 01-07 on the synthetic minicube (tools_torch/synthetic.py) with
    ``device="cuda"``;
 5. steps 01-07 on the synthetic 3681 x 100 x 200 field
@@ -363,7 +365,8 @@ def phase_sweep_parity(precision):
         peak = PEAK_BF16 if precision == "bf16x3" else PEAK_FP32
         bound, by = _sweep_bound(t_num, t_den, x.numel(), 1, peak)
         log(f"  {precision} K={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms, bound {bound:.3f} ms ({by}) at {nz}x{ny}x{nx}")
+            f"ms, bound {bound:.3f} ms ({by}) at {nz}x{ny}x{nx}: "
+            f"{bound / ms:.1%} of the bound")
         out[k] = dict(max_abs_err=err, mismatches=mism, tie_gap=gap, ms=ms,
                       plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     return out

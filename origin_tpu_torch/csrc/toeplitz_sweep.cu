@@ -17,35 +17,51 @@
 // and writes max_k t_k, the first k that reaches it (strict `>`), and
 // min_k t_k.  The taps are one row per profile (for the Toeplitz banks,
 // column 0, bit-identical to the bank entries); the j loop spans only
-// each profile's nonzero taps [start_k, start_k + len_k).  Samples outside
-// [0, Nz) read as zero, which is the zero padding of the Toeplitz form.
+// each profile's nonzero taps [start_k, start_k + len_k), in ascending j
+// from 0.f, whatever the tiling.  Samples outside [0, Nz) read as zero,
+// which is the zero padding of the Toeplitz form.
 //
 // Layout: threads on neighbouring spaxels.  In the cube's (Nz, S) layout
 // every global load and store is coalesced and no transpose or padded
 // copy is made; the spaxel-major layout stages its window with threads
-// along z (coalesced) and stores uncoalesced.  A block stages a
-// (TZ + reach - 1) x TS window of x and n plus all taps in shared memory,
-// then each thread runs ZT channels of one spaxel through all K profiles,
-// keeping max / argmax / min in registers: the inputs are read from
-// device memory once for every K, as in the TPU kernel.
+// along z (coalesced) and stores uncoalesced.  A block copies a
+// (TZ + reach - 1) x TS window of x and n into shared memory with
+// cp.async (all copies in flight at once, no registers), plus all taps;
+// every thread then runs RZ consecutive channels of one spaxel through all
+// K profiles, keeping max / argmax / min in registers: the inputs are read
+// from device memory once for every K, as in the TPU kernel.
 //
-// bf16x3: each staged sample and each tap is split once, as it is
-// staged, into hi = bf16_rn(a) and lo = bf16_rn(a - hi), packed into one
-// 32-bit word (hi in the upper half: both halves are floats by a mask or a
-// shift), so the window takes the shared memory of the float32 form.
-// Each tap term is th*xh + th*xl + tl*xh in float32 FMAs, the three
-// passes of origin_tpu/ops/pallas_prec.py (a bf16 x bf16 product is exact
-// in float32).
+// Register blocking along z: the RZ channels of a thread share their
+// samples, so a tap step loads one tap (a broadcast) and one new sample
+// into a sliding window of RZ registers and does RZ FMAs.  The tap loop
+// is unrolled by RZ, so the window slides by register renaming; the
+// `len_k % RZ` last taps run in a guarded tail (no zero taps are added:
+// a zero tap times a NaN or infinite sample would turn a finite
+// statistic into NaN).
+//
+// bf16x3: each sample and each tap is split as it enters a register, into
+// hi = bf16_rn(a) and lo = bf16_rn(a - hi), and each tap term is
+// th*xh + th*xl + tl*xh in float32 FMAs, the three passes of
+// origin_tpu/ops/pallas_prec.py (a bf16 x bf16 product is exact in
+// float32).
 //
 // What bounds it on an H100: per voxel it moves 17 bytes (two float32
 // inputs, two float32 outputs, one uint8 index), about 1.25 GB for a
-// 3681 x 100 x 200 cube, or ~0.4 ms at 3.35 TB/s; it does 2 * sum_k len_k
+// 3681 x 100 x 200 cube, or ~0.37 ms at 3.35 TB/s; it does 2 * sum_k len_k
 // float32 FMAs per voxel (206 for the 3-profile dictionary, ~30 GFLOP on
-// that cube; ~1400 and ~207 GFLOP for the 20-profile one), three times
-// that in bf16x3.  So it is bound by the FP32 pipes, and in this simple
-// form by shared-memory loads (one per FMA in float32: the tap is a
-// broadcast, the sample is not reused from registers; bf16x3 adds the
-// unpacking).  Register blocking along z is the next step.
+// that cube, 0.45 ms at 67 TFLOP/s; ~1400 and ~207 GFLOP for the
+// 20-profile one), three times that in bf16x3.  So it is bound by the
+// FP32 pipes.  With one shared-memory load per FMA (the form before
+// register blocking) it sat at its shared-memory ceiling, 11% of that
+// bound.  Blocked, it loads 2 words per RZ FMAs, and its instruction
+// slots go to the FMAs, to each span's window fill and tail, and to the
+// IEEE sqrt and division and the max / argmax / min of each (voxel,
+// profile), whose slow-path branches keep the compiler from interleaving
+// them.  RZ = 8 at 64 registers keeps 32 warps on an SM; RZ = 16 (128
+// registers, 16 warps) runs fewer instructions but ran slower, since the
+// FMAs wait on shared-memory loads and on the division, which more warps
+// hide.  On an H100 80GB HBM3 at 700 W that is 34% of the FP32 bound for
+// the 3-profile dictionary and 44% for the 20-profile one (PERF.md).
 //
 // Arithmetic: float32 FMAs, IEEE sqrtf and division (no fast math), the
 // den <= 0 -> +inf guard, NaN propagation of jnp.maximum / jnp.minimum.
@@ -58,52 +74,91 @@
 namespace {
 
 constexpr int TS = 32;        // spaxels per block (threadIdx.x)
-constexpr int WY = 8;         // threadIdx.y
-constexpr int ZT = 16;        // channels per thread
-constexpr int TZ = WY * ZT;   // channels per block
+constexpr int SROW = TS + 1;  // shared row stride: both layouts stage
+                              // without bank conflicts
+constexpr int RZ = 8;         // channels per thread
+constexpr int WY = 8;         // threads along z (threadIdx.y)
+constexpr int TZ = RZ * WY;   // channels per block
 constexpr int NT = TS * WY;
 
 size_t smem_bytes(int nprof, int reach) {
   size_t rows = TZ + reach - 1;
-  return (2 * rows * TS + 2 * (size_t)nprof * reach) * sizeof(float)
+  return (2 * rows * SROW + 2 * (size_t)nprof * reach) * sizeof(float)
          + 2 * (size_t)nprof * sizeof(int);
 }
 
-// hi in the upper 16 bits, lo in the lower: the bf16x3 split of v
-__device__ __forceinline__ uint32_t pack_split(float v) {
-  const __nv_bfloat16 h = __float2bfloat16_rn(v);
-  const __nv_bfloat16 l = __float2bfloat16_rn(v - __bfloat162float(h));
-  return ((uint32_t)__bfloat16_as_ushort(h) << 16)
-         | (uint32_t)__bfloat16_as_ushort(l);
+// dst = *src (4 bytes, global to shared, asynchronous), or 0 unless `in`
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(in ? 4 : 0));
 }
 
-__device__ __forceinline__ float hi_of(uint32_t u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
+// A sample or a tap as the FMAs take it: the float32 value, or its bf16x3
+// (hi, lo) split.
+template <bool X3> struct Op;
 
-__device__ __forceinline__ float lo_of(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
+template <> struct Op<false> {
+  using V = float;
+  static __device__ __forceinline__ V enter(float v) { return v; }
+  static __device__ __forceinline__ float term(V t, V v, float acc) {
+    return fmaf(t, v, acc);
+  }
+};
 
-// One tap term: a float32 FMA, or the three bf16x3 passes.
+template <> struct Op<true> {
+  using V = float2;
+  static __device__ __forceinline__ V enter(float v) {
+    const float h = __bfloat162float(__float2bfloat16_rn(v));
+    return make_float2(h, __bfloat162float(__float2bfloat16_rn(v - h)));
+  }
+  static __device__ __forceinline__ float term(V t, V v, float acc) {
+    acc = fmaf(t.x, v.x, acc);
+    acc = fmaf(t.x, v.y, acc);
+    return fmaf(t.y, v.x, acc);
+  }
+};
+
+// Tap u of the current group of RZ: sample u + RZ - 1 enters the window
+// slot that sample u - 1 (the last one output 0 needed) leaves, then
+// output t takes tap u times sample u + t.  With u a compile-time constant
+// every slot index is one.
 template <bool X3>
-__device__ __forceinline__ float term(float t, float v, float acc) {
-  if (!X3) return fmaf(t, v, acc);
-  const uint32_t tu = __float_as_uint(t), vu = __float_as_uint(v);
-  acc = fmaf(hi_of(tu), hi_of(vu), acc);
-  acc = fmaf(hi_of(tu), lo_of(vu), acc);
-  return fmaf(lo_of(tu), hi_of(vu), acc);
+__device__ __forceinline__ void tap_step(int u, const float* tap,
+                                         const float* smp,
+                                         typename Op<X3>::V (&w)[RZ],
+                                         float (&acc)[RZ]) {
+  w[(u + RZ - 1) % RZ] = Op<X3>::enter(smp[(u + RZ - 1) * SROW]);
+  const typename Op<X3>::V a = Op<X3>::enter(tap[u]);
+#pragma unroll
+  for (int t = 0; t < RZ; ++t)
+    acc[t] = Op<X3>::term(a, w[(u + t) % RZ], acc[t]);
 }
 
+// acc[t] = sum_{j < len} tap[j] * smp[(j + t) * SROW] for t < RZ, each
+// sum in ascending j from 0.f.  Slot (j + t) % RZ of the window holds
+// sample j + t.
 template <bool X3>
-__device__ __forceinline__ float stage(float v) {
-  return X3 ? __uint_as_float(pack_split(v)) : v;
+__device__ __forceinline__ void span_sums(const float* tap, const float* smp,
+                                          int len, float (&acc)[RZ]) {
+  typename Op<X3>::V w[RZ];
+#pragma unroll
+  for (int t = 0; t < RZ; ++t) acc[t] = 0.f;
+#pragma unroll
+  for (int i = 0; i < RZ - 1; ++i) w[i] = Op<X3>::enter(smp[i * SROW]);
+  for (; len >= RZ; len -= RZ, tap += RZ, smp += RZ * SROW) {
+#pragma unroll
+    for (int u = 0; u < RZ; ++u) tap_step<X3>(u, tap, smp, w, acc);
+  }
+#pragma unroll
+  for (int u = 0; u < RZ - 1; ++u)
+    if (u < len) tap_step<X3>(u, tap, smp, w, acc);
 }
 
 // SMAJ: inputs and outputs spaxel-major, element (z, s) at s * nz + z;
 // otherwise the cube's (Nz, S) layout, at z * s_total + s.
 template <typename P, bool X3, bool SMAJ>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 4)
 sweep_kernel(const float* __restrict__ x, const float* __restrict__ n,
              const float* __restrict__ taps_num,
              const float* __restrict__ taps_den,
@@ -114,9 +169,9 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ n,
              int nz, int s, int nprof, int reach, int pad_left) {
   extern __shared__ float smem[];
   const int rows = TZ + reach - 1;
-  float* xs = smem;                  // rows x TS
-  float* ns = xs + rows * TS;        // rows x TS
-  float* tn = ns + rows * TS;        // nprof x reach
+  float* xs = smem;                  // rows x SROW
+  float* ns = xs + rows * SROW;      // rows x SROW
+  float* tn = ns + rows * SROW;      // nprof x reach
   float* td = tn + nprof * reach;    // nprof x reach
   int* ts = reinterpret_cast<int*>(td + nprof * reach);
   int* tl = ts + nprof;
@@ -128,58 +183,65 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ n,
   const int z0 = blockIdx.y * TZ;
 
   for (int i = tid; i < nprof * reach; i += NT) {
-    tn[i] = stage<X3>(taps_num[i]);
-    td[i] = stage<X3>(taps_den[i]);
+    tn[i] = taps_num[i];
+    td[i] = taps_den[i];
   }
   for (int i = tid; i < nprof; i += NT) {
     ts[i] = tap_start[i];
     tl[i] = tap_len[i];
   }
-  // row r of the window holds channel z0 - pad_left + r
+  // row r of the window holds channel z0 - pad_left + r; the copies go
+  // straight to shared memory, all in flight at once (threads along z in
+  // the spaxel-major layout, along spaxels in the cube's)
   for (int e = tid; e < rows * TS; e += NT) {
     const int r = SMAJ ? e % rows : e / TS;
     const int c = SMAJ ? e / rows : e % TS;
     const int zi = z0 - pad_left + r;
     const int spc = blockIdx.x * TS + c;
-    float xv = 0.f, nv = 0.f;
-    if (zi >= 0 && zi < nz && spc < s) {
-      const size_t off = SMAJ ? (size_t)spc * nz + zi : (size_t)zi * s + spc;
-      xv = x[off];
-      nv = n[off];
-    }
-    xs[r * TS + c] = stage<X3>(xv);
-    ns[r * TS + c] = stage<X3>(nv);
+    const bool in = zi >= 0 && zi < nz && spc < s;
+    const size_t off = !in ? 0
+                       : SMAJ ? (size_t)spc * nz + zi : (size_t)zi * s + spc;
+    copy4(xs + r * SROW + c, x + off, in);
+    copy4(ns + r * SROW + c, n + off, in);
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  if (sp >= s) return;
+  const int zl = ty * RZ;
+  if (sp >= s || z0 + zl >= nz) return;
 
-  for (int t = 0; t < ZT; ++t) {
-    const int zl = ty * ZT + t;
-    const int z = z0 + zl;
-    if (z >= nz) break;
-    float best = -INFINITY;
-    float low = INFINITY;
-    int arg = 0;
-    for (int k = 0; k < nprof; ++k) {
-      const int j0 = ts[k];
-      const int j1 = j0 + tl[k];
-      const float* tnk = tn + k * reach;
-      const float* tdk = td + k * reach;
-      float num = 0.f, den = 0.f;
-      for (int j = j0; j < j1; ++j) {
-        num = term<X3>(tnk[j], xs[(zl + j) * TS + tx], num);
-        den = term<X3>(tdk[j], ns[(zl + j) * TS + tx], den);
-      }
-      const float norm = (den <= 0.f) ? INFINITY : sqrtf(den);
-      const float tv = num / norm;
-      if (tv > best) arg = k;               // strict: first profile wins
-      best = (tv > best || tv != tv) ? tv : best;  // NaN propagates
-      low = (tv < low || tv != tv) ? tv : low;
+  float best[RZ], low[RZ];
+  int arg[RZ];
+#pragma unroll
+  for (int t = 0; t < RZ; ++t) {
+    best[t] = -INFINITY;
+    low[t] = INFINITY;
+    arg[t] = 0;
+  }
+  for (int k = 0; k < nprof; ++k) {
+    const int j0 = ts[k];
+    const int len = tl[k];
+    const int at = (zl + j0) * SROW + tx;
+    float num[RZ], den[RZ];
+    span_sums<X3>(tn + k * reach + j0, xs + at, len, num);
+    span_sums<X3>(td + k * reach + j0, ns + at, len, den);
+#pragma unroll
+    for (int t = 0; t < RZ; ++t) {
+      const float norm = (den[t] <= 0.f) ? INFINITY : sqrtf(den[t]);
+      const float tv = num[t] / norm;
+      if (tv > best[t]) arg[t] = k;                  // strict: first wins
+      best[t] = (tv > best[t] || tv != tv) ? tv : best[t];  // NaN wins
+      low[t] = (tv < low[t] || tv != tv) ? tv : low[t];
     }
-    const size_t off = SMAJ ? (size_t)sp * nz + z : (size_t)z * s + sp;
-    correl[off] = best;
-    profile[off] = static_cast<P>(arg);
-    cmin[off] = low;
+  }
+#pragma unroll
+  for (int t = 0; t < RZ; ++t) {
+    const int z = z0 + zl + t;
+    if (z < nz) {
+      const size_t off = SMAJ ? (size_t)sp * nz + z : (size_t)z * s + sp;
+      correl[off] = best[t];
+      profile[off] = static_cast<P>(arg[t]);
+      cmin[off] = low[t];
+    }
   }
 }
 

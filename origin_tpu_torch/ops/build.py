@@ -25,9 +25,13 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build"
 
+# ptxas fails a kernel that spills registers or uses local memory: the
+# sweep kernel's register blocking would be gone.  The flags are part of
+# the cache key, so a cached library has passed the same rule.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v,-warn-spills,-warn-lmem-usage,-Werror",
 )
 
 #: every CUDA source of the port, by name

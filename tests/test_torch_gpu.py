@@ -7,7 +7,9 @@ installed, with the repository's conftest (which imports JAX) left out:
 Tolerances: the kernel and the plain sweep sum the profile taps in
 different orders, so correl and correl_min agree at atol 1e-5 + rtol
 1e-5, and the best-profile index may differ only where the two candidate
-profiles' statistics are within 1e-5 of each other.  The spatial kernel
+profiles' statistics are within 1e-5 of each other.  The sweep cases also
+hold a NaN sample and den = 0 and den < 0 spaxels (see ``_hold`` for what
+the NaN may change).  The spatial kernel
 sums its products in 64 x 64 tiles, cuBLAS in its own order: atol 1e-5 on
 values of order 1 in both precisions (in bf16x3 a one-ulp difference of a
 float32 intermediate can also move a split's low half by one bf16 step; the
@@ -43,14 +45,39 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(dico, nz, ny, nx, dev, seed=6):
-    profiles, _ = load_dictionary(default_dictionary_path(dico))
-    t_num, t_den, pad_left, _ = glr.pack_profiles_toeplitz(
-        glr.prepare_profiles(profiles), block=min(128, nz))
+# hand-made profiles of these lengths (centre (len - 1) // 2, random taps):
+# spans shorter than a thread's 8 channels and not multiples of them, and
+# more than 255 profiles (int32 indices); the longest spans the whole
+# reach, as in the dictionaries
+HAND_BANKS = dict(short_spans=[1, 2, 3, 5, 7, 9, 13, 17, 21],
+                  k260=[1 + (5 * k) % 21 for k in range(260)])
+DICOS = [DICO_3FWHM, DICO_FWHM_2_12, *HAND_BANKS]
+# nz of 1, RZ -+ 1 and TZ -+ 1 of the kernel's tile (8 channels a thread,
+# 64 a block), twice those, and others; spaxel counts of 15, 49 and 600
+# leave a partial warp
+SWEEP_SHAPES = [(700, 20, 30), (77, 3, 5), (1, 3, 5), (7, 3, 5), (9, 3, 5),
+                (15, 3, 5), (17, 3, 5), (63, 3, 5), (65, 3, 5), (127, 3, 5),
+                (129, 7, 7)]
+
+
+def _problem(dico, nz, ny, nx, dev, seed=6, nan=False):
+    """Cubes and banks; den = 0 at spaxel (0, 0); with ``nan``, den < 0 at
+    spaxel (0, 1) and one NaN sample of x at spaxel (0, 2)."""
     rng = np.random.default_rng(seed)
+    if dico in HAND_BANKS:
+        prepped = [(p, (len(p) - 1) // 2) for p in
+                   (rng.normal(size=m) for m in HAND_BANKS[dico])]
+    else:
+        profiles, _ = load_dictionary(default_dictionary_path(dico))
+        prepped = glr.prepare_profiles(profiles)
+    t_num, t_den, pad_left, _ = glr.pack_profiles_toeplitz(
+        prepped, block=min(128, nz))
     x = rng.normal(size=(nz, ny, nx)).astype(np.float32)
     n = rng.uniform(0.5, 2.0, size=(nz, ny, nx)).astype(np.float32)
     n[:, 0, 0] = 0.0  # the den <= 0 guard
+    if nan:
+        n[:, 0, 1] = -1.0
+        x[nz // 2, 0, 2] = np.nan
     return [torch.from_numpy(a).to(dev) for a in (x, n, t_num, t_den)], \
         pad_left
 
@@ -84,41 +111,83 @@ def _assert_ties(p, pr, x, n, t_num, t_den, pad_left, precision="highest"):
             assert abs(t[0] - t[1]) <= 1e-5
 
 
+def _nan_regions(x, t_num, t_den, pad_left):
+    """Boolean cubes of the voxels whose NaN sample of x lies in their
+    reach, in every profile's span, and in the (W, block) window of their
+    block in the banks.  The banded plain version multiplies a NaN by the
+    zero taps of its whole window, the kernel only within each profile's
+    span (PERF.md section 7)."""
+    nprof, window, block = t_num.shape
+    _, _, start, length = sweep_taps(t_num, t_den)
+    reach = window - block + 1
+    regions = [torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+               for _ in range(3)]
+    z = torch.arange(x.shape[0], device=x.device)
+    for zn, yy, xx in torch.isnan(x).nonzero().tolist():
+        d = zn - z + pad_left
+        spans = ((d[:, None] >= start[None, :])
+                 & (d[:, None] < (start + length)[None, :]))
+        w0 = z // block * block - pad_left
+        for r, m in zip(regions, ((d >= 0) & (d < reach), spans.all(1),
+                                 (zn >= w0) & (zn < w0 + window))):
+            r[:, yy, xx] |= m
+    return regions
+
+
+def _hold(got, ref, x, n, t_num, t_den, pad_left, precision="highest"):
+    """The kernel's (correl, profile, correl_min) against the plain
+    version's: values at atol 1e-5 + rtol 1e-5, indices equal but at
+    near-ties.  Where x holds a NaN, the kernel's values are NaN exactly
+    in its reach (the longest profile spans the reach) and the comparison
+    skips the rest of the plain version's window, and its indices where
+    the NaN is outside some profile's span."""
+    (c, p, m), (cr, pr, mr) = got, ref
+    wide = t_num.shape[0] > 255
+    assert p.dtype == pr.dtype == (torch.int32 if wide else torch.uint8)
+    assert torch.all(c[:, 0, 0] == 0)
+    if torch.isnan(x).any():
+        assert torch.all(c[:, 0, 1] == 0)  # den < 0
+        in_reach, in_spans, in_window = _nan_regions(x, t_num, t_den,
+                                                     pad_left)
+        assert torch.isnan(c[in_reach]).all()
+        assert torch.isnan(m[in_reach]).all()
+        spread = in_window & ~in_reach
+        assert torch.isfinite(c[spread]).all()
+        c, m = torch.where(spread, cr, c), torch.where(spread, mr, m)
+        p = torch.where(in_window & ~in_spans, pr, p)
+    torch.testing.assert_close(c, cr, atol=1e-5, rtol=1e-5, equal_nan=True)
+    torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5, equal_nan=True)
+    _assert_ties(p, pr, x, n, t_num, t_den, pad_left, precision)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dico", [DICO_3FWHM, DICO_FWHM_2_12])
-@pytest.mark.parametrize("shape", [(700, 20, 30), (77, 3, 5)])
+@pytest.mark.parametrize("dico", DICOS)
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
 def test_cuda_kernel_matches_plain(cuda, dico, shape):
     nz = shape[0]
-    (x, n, t_num, t_den), pad_left = _problem(dico, *shape, cuda)
+    (x, n, t_num, t_den), pad_left = _problem(dico, *shape, cuda, nan=True)
     before = spectral_sweep.launches
-    c, p, m = spectral_sweep(x, n, t_num, t_den, pad_left, nz)
+    got = spectral_sweep(x, n, t_num, t_den, pad_left, nz)
     torch.cuda.synchronize()
     assert spectral_sweep.launches == before + 1
-    cr, pr, mr = glr.toeplitz_sweep(x, n, t_num, t_den, pad_left, nz)
-    torch.testing.assert_close(c, cr, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5)
-    assert p.dtype == pr.dtype == torch.uint8
-    assert torch.all(c[:, 0, 0] == 0)
-    _assert_ties(p, pr, x, n, t_num, t_den, pad_left)
+    ref = glr.toeplitz_sweep(x, n, t_num, t_den, pad_left, nz)
+    _hold(got, ref, x, n, t_num, t_den, pad_left)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dico", [DICO_3FWHM, DICO_FWHM_2_12])
-@pytest.mark.parametrize("shape", [(700, 20, 30), (77, 3, 5)])
+@pytest.mark.parametrize("dico", DICOS)
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
 def test_cuda_bf16x3_sweep_matches_plain(cuda, dico, shape):
     nz = shape[0]
-    (x, n, t_num, t_den), pad_left = _problem(dico, *shape, cuda)
+    (x, n, t_num, t_den), pad_left = _problem(dico, *shape, cuda, nan=True)
     before = spectral_sweep.launches_bf16x3
-    c, p, m = spectral_sweep(x, n, t_num, t_den, pad_left, nz,
-                             precision="bf16x3")
+    got = spectral_sweep(x, n, t_num, t_den, pad_left, nz,
+                         precision="bf16x3")
     torch.cuda.synchronize()
     assert spectral_sweep.launches_bf16x3 == before + 1
-    cr, pr, mr = glr.toeplitz_sweep(x, n, t_num, t_den, pad_left, nz,
-                                    precision="bf16x3")
-    torch.testing.assert_close(c, cr, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5)
-    assert p.dtype == pr.dtype == torch.uint8
-    _assert_ties(p, pr, x, n, t_num, t_den, pad_left, "bf16x3")
+    ref = glr.toeplitz_sweep(x, n, t_num, t_den, pad_left, nz,
+                             precision="bf16x3")
+    _hold(got, ref, x, n, t_num, t_den, pad_left, "bf16x3")
 
 
 def _spatial_problem(nz, ny, nx, psf, nfields, dev, seed=2):

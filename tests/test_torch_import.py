@@ -112,6 +112,23 @@ def test_device_is_explicit():
             resolve_device("cuda")
 
 
+@pytest.mark.parametrize("name", ["toeplitz_sweep", "spatial_fsf"])
+def test_kernel_build_without_nvcc_raises_with_the_spill_rule(
+        name, monkeypatch):
+    """No fallback: a kernel that cannot be built raises and names its
+    command, whose ptxas flags fail any spill or local-memory use."""
+    from origin_tpu_torch.ops import build
+
+    assert name in build.KERNELS
+    monkeypatch.setattr(build, "_find_nvcc", lambda: None)
+    monkeypatch.setattr(build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc not found") as exc:
+        build.load_library(name)
+    assert f"{name}.cu" in str(exc.value)
+    assert "-Xptxas=-v,-warn-spills,-warn-lmem-usage,-Werror" in str(
+        exc.value)
+
+
 # -- the port's copies against the JAX package's originals -------------------
 def test_dictionaries_load_equal():
     from origin_tpu.core import profiles as jprof

@@ -6,7 +6,10 @@ Runs steps 01-07 on the synthetic 3681x100x200 field (tools_torch/synthetic.py)
 ``torch.profiler``.  For each step of the warm run it prints the host wall
 (with the device drained at both ends), the device-busy time (the union of
 the GPU kernel and memcpy intervals inside the step's window) and the idle
-share ``1 - busy / wall``; then the device ops with the most device time.
+share ``1 - busy / wall``, and the step's three ops with the most device
+time; then the device ops with the most device time overall.  The steps'
+own ``record_function`` ranges appear on the device timeline too and are
+left out of both.
 Writes chiprun_out/profile_field_<mode>.json and the Chrome trace
 chiprun_out/profile_field_<mode>_trace.json, <mode> the precision.
 
@@ -71,20 +74,29 @@ def main():
         warm = run("profile_warm", traced=True)
 
     events = prof.events()
-    device = [(e.time_range.start, e.time_range.end) for e in events
-              if e.device_type == DeviceType.CUDA]
+    device = [(e.time_range.start, e.time_range.end, e.name) for e in events
+              if e.device_type == DeviceType.CUDA
+              and e.name not in chip_smoke.STEP_NAMES]
     steps = {}
     for e in events:
         if e.name in chip_smoke.STEP_NAMES and e.device_type == DeviceType.CPU:
             a, b = e.time_range.start, e.time_range.end
-            busy = _union_us([(max(x, a), min(y, b)) for x, y in device
-                              if y > a and x < b])
+            inside = [(max(x, a), min(y, b), name) for x, y, name in device
+                      if y > a and x < b]
+            busy = _union_us([(x, y) for x, y, _ in inside])
+            by_op = {}
+            for x, y, name in inside:
+                by_op[name] = by_op.get(name, 0.0) + (y - x) / 1e3
             wall_us = warm[e.name] * 1e6
-            steps[e.name] = dict(wall_s=warm[e.name], device_busy_s=busy / 1e6,
-                                 idle_share=1.0 - busy / wall_us)
+            steps[e.name] = dict(
+                wall_s=warm[e.name], device_busy_s=busy / 1e6,
+                idle_share=1.0 - busy / wall_us,
+                top_ops_ms=sorted(by_op.items(), key=lambda r: -r[1])[:3])
     ops = sorted(((k.key, k.self_device_time_total, k.count)
                   for k in prof.key_averages()
-                  if k.self_device_time_total > 0), key=lambda r: -r[1])[:20]
+                  if k.self_device_time_total > 0
+                  and k.key not in chip_smoke.STEP_NAMES),
+                 key=lambda r: -r[1])[:20]
 
     card = os.popen("nvidia-smi --query-gpu=name,power.limit "
                     "--format=csv,noheader").read().strip()
@@ -96,6 +108,8 @@ def main():
         s = steps[name]
         print(f"{name}  {cold[name]:7.3f}  {warm[name]:7.3f}  "
               f"{s['device_busy_s']:13.4f}  {s['idle_share']:10.3f}")
+        for op, ms in s["top_ops_ms"]:
+            print(f"          {ms:9.3f} ms  {op[:80]}")
     busy = sum(s["device_busy_s"] for s in steps.values())
     total = sum(warm.values())
     print(f"total   {sum(cold.values()):7.3f}  {total:7.3f}  {busy:13.4f}  "
