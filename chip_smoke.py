@@ -637,7 +637,7 @@ def phase_spatial():
     import torch
 
     from origin_tpu_torch.device import set_precision
-    from origin_tpu_torch.ops import glr
+    from origin_tpu_torch.ops import glr, spatial
     from origin_tpu_torch.ops.spatial import spatial_fsf
 
     set_precision()  # float32 cuBLAS and cuDNN, as a session sets it
@@ -648,7 +648,14 @@ def phase_spatial():
     for label, shape, nfields in cases:
         args, psfs = _spatial_problem(*shape, nfields, dev)
         res, outs = {}, {}
+        ny, fy = shape[1], args[1].shape[2]
         for precision in ("highest", "bf16x3"):
+            x3 = int(precision == "bf16x3")
+            lib = spatial._library()
+            tk = spatial._tile_columns(lib, ny, fy, x3)
+            smem = lib.spatial_fsf_smem_bytes(ny, fy, tk, x3)
+            log(f"  {label} {precision}: kx tiles of {tk}, {smem} bytes of "
+                f"shared memory per block")
             got = spatial_fsf(*args, precision=precision)
             torch.cuda.synchronize()
             ref = glr.glr_spatial_matmul(*args, precision=precision)
@@ -668,7 +675,7 @@ def phase_spatial():
             bound, by = _spatial_bound(args, precision)
             res[precision] = dict(max_abs_err=err, rms_err=rms_err, ms=ms,
                                   plain_ms=plain_ms, bound_ms=bound,
-                                  bound_by=by)
+                                  bound_by=by, tk=tk, smem_bytes=smem)
             log(f"  {label} {precision}: kernel {ms:.3f} ms, plain "
                 f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by})")
         sep = _rms(outs.pop("bf16x3") - outs.pop("highest"))

@@ -92,6 +92,15 @@ def matched_filter_spectral(x, n, prof_bank, prof2_bank, centers):
     squares (``origin_tpu.ops.glr._pack_profiles``); ``centers``: the
     'same' offset of each profile.  Returns ``(correl, correl_min,
     profile_idx)`` of shape (S, Nz).
+
+    Where the kernel and ``_mf_kernel`` differ: ``_mf_kernel`` and the
+    plain version skip every tap that is zero in both banks, the kernel
+    sums each profile's span from its first to its last nonzero tap.  The
+    two agree for profiles without zero taps inside their span (all the
+    dictionaries'); with one, a NaN or infinite sample facing it makes the
+    kernel's statistic NaN where theirs stays finite.  The engine
+    zero-fills non-finite voxels before step 05, and neither entry is on
+    its path.
     """
     dev = x.device
     s, nz = _spaxel_inputs(x, n)
@@ -127,6 +136,15 @@ def banded_matmul_spectral(x, n, t_num, t_den, pad_left, nz):
     profile_idx)`` of shape (S, Nz).  The TPU kernel seeds its running
     max / min with profile 0's statistic and this port with -inf / +inf;
     the two agree, NaN included (``tests/test_torch_kernels.py``).
+
+    Where the kernel and ``_banded_kernel`` differ: the kernel sums each
+    profile's nonzero span only, while the TPU kernel and the plain
+    version multiply every tap of their (W, block) window, zeros
+    included.  So a NaN or infinite sample inside that window but outside
+    a profile's span makes their statistic NaN where the kernel's stays
+    finite (``tests/test_torch_gpu.py:_hold`` pins where).  That footprint
+    comes from the TPU kernel's block tiling; the engine zero-fills
+    non-finite voxels before step 05, and this entry is on no step's path.
     """
     dev = x.device
     s, nz_x = _spaxel_inputs(x, n)

@@ -128,6 +128,17 @@ def spectral_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
     tensor it launches the kernel and counts the launch in
     ``spectral_sweep.launches`` (``highest``) or
     ``spectral_sweep.launches_bf16x3``.
+
+    Where the kernel and the TPU kernel ``_sweep_kernel`` differ: the
+    kernel sums each profile's nonzero span only, while the TPU kernel and
+    the plain version also multiply the zero taps of their (W, block)
+    window.  So a NaN or infinite sample inside that window but outside a
+    profile's span makes their statistic NaN where the kernel's stays
+    finite (``tests/test_torch_gpu.py:_hold`` pins where).  That wider
+    footprint comes from the TPU kernel's block tiling, not from the
+    statistic, and the engine zero-fills non-finite voxels before step 05
+    (``pipeline/engine.py:_derive_inputs``), so the main path never feeds
+    such a sample.
     """
     check_precision(precision)
     dev = cube_fsf.device
