@@ -8,7 +8,7 @@ Phases, each fatal on failure:
 2. build every CUDA source of ``origin_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together) and print each one's ptxas register and
    spill lines; ptxas fails the build of any kernel that spills or uses
-   local memory (``ops/build.py:NVCC_FLAGS``), so the sweep kernel's
+   local memory (``ops/build.py:NVCC_FLAGS``), so the sweep kernels'
    register blocking holds;
 3. hold the GLR sweep kernel against its plain torch version on the card
    at 3681 x 100 x 200 for the 3- and 20-profile dictionaries, time both
@@ -24,7 +24,10 @@ a. the spatial FSF kernel against its plain version at 3681 x 100 x 200,
    cut, and on a 300 x 300 x 256 cut; CUDA-event times of the kernel, the
    plain version (at ``highest`` the cuBLAS chain the engine runs there)
    and one depthwise ``conv2d`` call (the library yardstick);
-b. the bf16x3 sweep against its plain version (K=3 and K=20);
+b. the bf16x3 sweep kernel (a banded matmul on the tensor cores) against
+   its plain version (K=3 and K=20), with the RMS check that it computes
+   the three bf16 passes; its time, share of its bound and ratio to the
+   float32 kernel's time of phase 3;
 c. the spaxel-major sweeps ``matched_filter_spectral`` and
    ``banded_matmul_spectral``, each called once through its entry point,
    against their plain versions at 3681 x 100 x 200;
@@ -109,7 +112,7 @@ PEAK_BYTES = 3.35e12    # HBM bytes/s
 KERNEL_SOURCES = dict(
     toeplitz_sweep=("origin_tpu_torch/csrc/toeplitz_sweep.cu",
                     "origin_tpu/ops/pallas_sweep.py:42"),
-    toeplitz_sweep_bf16x3=("origin_tpu_torch/csrc/toeplitz_sweep.cu",
+    toeplitz_sweep_bf16x3=("origin_tpu_torch/csrc/sweep_bf16x3.cu",
                            "origin_tpu/ops/pallas_sweep.py:42"),
     spatial_fsf=("origin_tpu_torch/csrc/spatial_fsf.cu",
                  "origin_tpu/ops/pallas_spatial.py:44"),
@@ -337,7 +340,42 @@ def _sweep_bound(t_num, t_den, nvox, idx_bytes, peak):
                   peak)
 
 
-def phase_sweep_parity(precision):
+def _sweep_values(out):
+    """correl and correl_min of a sweep's outputs, stacked."""
+    import torch
+
+    return torch.stack((out[0], out[2]))
+
+
+def _sweep_split(what, got, ref, args):
+    """The RMS check that a bf16x3 sweep computes the three passes: its
+    distance from the float32 kernel against that kernel's order noise and
+    against its own distance from its plain version."""
+    from origin_tpu_torch.ops.glr import toeplitz_sweep
+    from origin_tpu_torch.ops.sweep import spectral_sweep
+
+    highest = _sweep_values(spectral_sweep(*args))
+    noise = _rms(highest - _sweep_values(toeplitz_sweep(*args)))
+    got = _sweep_values(got)
+    sep = _rms(got - highest)
+    err3 = _rms(got - _sweep_values(ref))
+    # the float32 kernel and its cuBLAS plain version may agree bit for bit
+    # (noise 0); the bf16x3 kernel must still differ from the former
+    check(sep > 0 and sep >= SPLIT_SEPARATION * noise,
+          f"{what} kernel splits: RMS {sep:.3g} from the highest kernel > 0 "
+          f"and >= {SPLIT_SEPARATION:g} x the float32 order noise "
+          f"{noise:.3g}")
+    check(sep >= SPLIT_NEARER * err3,
+          f"{what} kernel splits where its plain version does: RMS "
+          f"{err3:.3g} from it, {sep:.3g} from the highest kernel (ratio "
+          f"{sep / max(err3, 1e-30):.3g} >= {SPLIT_NEARER:g})")
+    return dict(rms_err=err3, rms_from_highest=sep, rms_noise=noise)
+
+
+def phase_sweep_parity(precision, float32=None):
+    """The sweep kernel of ``precision`` against its plain version at K=3
+    and K=20, timed; in bf16x3 also the split check and the ratio to the
+    float32 kernel's times ``float32`` (phase 3's result)."""
     import torch
 
     from origin_tpu_torch.core.profiles import DICO_3FWHM, DICO_FWHM_2_12
@@ -355,8 +393,12 @@ def phase_sweep_parity(precision):
         got = spectral_sweep(*args, precision=precision)
         torch.cuda.synchronize()
         ref = toeplitz_sweep(*args, precision=precision)
-        err, mism, gap = _hold_sweep(f"{precision} K={k}", got, ref, x, n,
-                                     t_num, t_den, pad_left, precision)
+        what = f"{precision} K={k}"
+        err, mism, gap = _hold_sweep(what, got, ref, x, n, t_num, t_den,
+                                     pad_left, precision)
+        row = dict(max_abs_err=err, mismatches=mism, tie_gap=gap)
+        if precision == "bf16x3":
+            row.update(_sweep_split(what, got, ref, args))
         del got, ref
         ms = _time_cuda(lambda: spectral_sweep(*args, precision=precision),
                         reps=10)
@@ -364,11 +406,15 @@ def phase_sweep_parity(precision):
             *args, precision=precision), reps=3)
         peak = PEAK_BF16 if precision == "bf16x3" else PEAK_FP32
         bound, by = _sweep_bound(t_num, t_den, x.numel(), 1, peak)
-        log(f"  {precision} K={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms, bound {bound:.3f} ms ({by}) at {nz}x{ny}x{nx}: "
-            f"{bound / ms:.1%} of the bound")
-        out[k] = dict(max_abs_err=err, mismatches=mism, tie_gap=gap, ms=ms,
-                      plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        log(f"  {what}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound:.3f} ms ({by}) at {nz}x{ny}x{nx}: {bound / ms:.1%} of "
+            f"the bound")
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        if float32 is not None:
+            row["vs_float32"] = ms / float32[k]["ms"]
+            log(f"  {what}: {row['vs_float32']:.3f} x the float32 kernel's "
+                f"{float32[k]['ms']:.3f} ms (phase 3)")
+        out[k] = row
     return out
 
 
@@ -857,7 +903,7 @@ def main():
     log("[a] spatial FSF kernel vs plain")
     res["spatial"] = phase_spatial()
     log("[b] bf16x3 sweep kernel vs plain at %dx%dx%d" % FIELD)
-    res["sweep_bf16x3"] = phase_sweep_parity("bf16x3")
+    res["sweep_bf16x3"] = phase_sweep_parity("bf16x3", res["sweep"])
     log("[c] spaxel-major sweeps vs plain at %dx%dx%d" % FIELD)
     res["spaxel_major"] = phase_spaxel_major()
     log("[d] minicube and field steps 01-07 in bf16x3")

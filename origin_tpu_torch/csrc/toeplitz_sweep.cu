@@ -2,8 +2,8 @@
 //
 // Replaces three TPU kernels that compute the same function:
 // - `_sweep_kernel` of origin_tpu/ops/pallas_sweep.py (entry
-//   `toeplitz_sweep_pallas`, step 05), in float32 (`highest`) and in its
-//   `bf16x3` form, on the cube's (Nz, S) layout;
+//   `toeplitz_sweep_pallas`, step 05), in float32 (`highest`), on the
+//   cube's (Nz, S) layout (its bf16x3 form is csrc/sweep_bf16x3.cu);
 // - `_mf_kernel` and `_banded_kernel` of origin_tpu/ops/pallas_kernels.py
 //   (entries `matched_filter_spectral` and `banded_matmul_spectral`), on
 //   the spaxel-major (S, Nz) layout, float32, int32 indices.
@@ -39,18 +39,12 @@
 // a zero tap times a NaN or infinite sample would turn a finite
 // statistic into NaN).
 //
-// bf16x3: each sample and each tap is split as it enters a register, into
-// hi = bf16_rn(a) and lo = bf16_rn(a - hi), and each tap term is
-// th*xh + th*xl + tl*xh in float32 FMAs, the three passes of
-// origin_tpu/ops/pallas_prec.py (a bf16 x bf16 product is exact in
-// float32).
-//
 // What bounds it on an H100: per voxel it moves 17 bytes (two float32
 // inputs, two float32 outputs, one uint8 index), about 1.25 GB for a
 // 3681 x 100 x 200 cube, or ~0.37 ms at 3.35 TB/s; it does 2 * sum_k len_k
 // float32 FMAs per voxel (206 for the 3-profile dictionary, ~30 GFLOP on
 // that cube, 0.45 ms at 67 TFLOP/s; ~1400 and ~207 GFLOP for the
-// 20-profile one), three times that in bf16x3.  So it is bound by the
+// 20-profile one).  So it is bound by the
 // FP32 pipes.  With one shared-memory load per FMA (the form before
 // register blocking) it sat at its shared-memory ceiling, 11% of that
 // bound.  Blocked, it loads 2 words per RZ FMAs, and its instruction
@@ -67,7 +61,6 @@
 // den <= 0 -> +inf guard, NaN propagation of jnp.maximum / jnp.minimum.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
 
@@ -94,70 +87,41 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
                   "r"(in ? 4 : 0));
 }
 
-// A sample or a tap as the FMAs take it: the float32 value, or its bf16x3
-// (hi, lo) split.
-template <bool X3> struct Op;
-
-template <> struct Op<false> {
-  using V = float;
-  static __device__ __forceinline__ V enter(float v) { return v; }
-  static __device__ __forceinline__ float term(V t, V v, float acc) {
-    return fmaf(t, v, acc);
-  }
-};
-
-template <> struct Op<true> {
-  using V = float2;
-  static __device__ __forceinline__ V enter(float v) {
-    const float h = __bfloat162float(__float2bfloat16_rn(v));
-    return make_float2(h, __bfloat162float(__float2bfloat16_rn(v - h)));
-  }
-  static __device__ __forceinline__ float term(V t, V v, float acc) {
-    acc = fmaf(t.x, v.x, acc);
-    acc = fmaf(t.x, v.y, acc);
-    return fmaf(t.y, v.x, acc);
-  }
-};
-
 // Tap u of the current group of RZ: sample u + RZ - 1 enters the window
 // slot that sample u - 1 (the last one output 0 needed) leaves, then
 // output t takes tap u times sample u + t.  With u a compile-time constant
 // every slot index is one.
-template <bool X3>
 __device__ __forceinline__ void tap_step(int u, const float* tap,
-                                         const float* smp,
-                                         typename Op<X3>::V (&w)[RZ],
+                                         const float* smp, float (&w)[RZ],
                                          float (&acc)[RZ]) {
-  w[(u + RZ - 1) % RZ] = Op<X3>::enter(smp[(u + RZ - 1) * SROW]);
-  const typename Op<X3>::V a = Op<X3>::enter(tap[u]);
+  w[(u + RZ - 1) % RZ] = smp[(u + RZ - 1) * SROW];
+  const float a = tap[u];
 #pragma unroll
-  for (int t = 0; t < RZ; ++t)
-    acc[t] = Op<X3>::term(a, w[(u + t) % RZ], acc[t]);
+  for (int t = 0; t < RZ; ++t) acc[t] = fmaf(a, w[(u + t) % RZ], acc[t]);
 }
 
 // acc[t] = sum_{j < len} tap[j] * smp[(j + t) * SROW] for t < RZ, each
 // sum in ascending j from 0.f.  Slot (j + t) % RZ of the window holds
 // sample j + t.
-template <bool X3>
 __device__ __forceinline__ void span_sums(const float* tap, const float* smp,
                                           int len, float (&acc)[RZ]) {
-  typename Op<X3>::V w[RZ];
+  float w[RZ];
 #pragma unroll
   for (int t = 0; t < RZ; ++t) acc[t] = 0.f;
 #pragma unroll
-  for (int i = 0; i < RZ - 1; ++i) w[i] = Op<X3>::enter(smp[i * SROW]);
+  for (int i = 0; i < RZ - 1; ++i) w[i] = smp[i * SROW];
   for (; len >= RZ; len -= RZ, tap += RZ, smp += RZ * SROW) {
 #pragma unroll
-    for (int u = 0; u < RZ; ++u) tap_step<X3>(u, tap, smp, w, acc);
+    for (int u = 0; u < RZ; ++u) tap_step(u, tap, smp, w, acc);
   }
 #pragma unroll
   for (int u = 0; u < RZ - 1; ++u)
-    if (u < len) tap_step<X3>(u, tap, smp, w, acc);
+    if (u < len) tap_step(u, tap, smp, w, acc);
 }
 
 // SMAJ: inputs and outputs spaxel-major, element (z, s) at s * nz + z;
 // otherwise the cube's (Nz, S) layout, at z * s_total + s.
-template <typename P, bool X3, bool SMAJ>
+template <typename P, bool SMAJ>
 __global__ void __launch_bounds__(NT, 4)
 sweep_kernel(const float* __restrict__ x, const float* __restrict__ n,
              const float* __restrict__ taps_num,
@@ -222,8 +186,8 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ n,
     const int len = tl[k];
     const int at = (zl + j0) * SROW + tx;
     float num[RZ], den[RZ];
-    span_sums<X3>(tn + k * reach + j0, xs + at, len, num);
-    span_sums<X3>(td + k * reach + j0, ns + at, len, den);
+    span_sums(tn + k * reach + j0, xs + at, len, num);
+    span_sums(td + k * reach + j0, ns + at, len, den);
 #pragma unroll
     for (int t = 0; t < RZ; ++t) {
       const float norm = (den[t] <= 0.f) ? INFINITY : sqrtf(den[t]);
@@ -245,19 +209,19 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ n,
   }
 }
 
-template <typename P, bool X3, bool SMAJ>
+template <typename P, bool SMAJ>
 int launch(const void* x, const void* n, const void* tnum, const void* tden,
            const void* tstart, const void* tlen, void* correl, void* profile,
            void* cmin, int nz, int s, int nprof, int reach, int pad_left,
            void* stream) {
   const size_t smem = smem_bytes(nprof, reach);
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<P, X3, SMAJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sweep_kernel<P, SMAJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 block(TS, WY);
   dim3 grid((s + TS - 1) / TS, (nz + TZ - 1) / TZ);
-  sweep_kernel<P, X3, SMAJ><<<grid, block, smem, (cudaStream_t)stream>>>(
+  sweep_kernel<P, SMAJ><<<grid, block, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)n, (const float*)tnum,
       (const float*)tden, (const int*)tstart, (const int*)tlen,
       (float*)correl, (P*)profile, (float*)cmin, nz, s, nprof, reach,
@@ -272,8 +236,8 @@ extern "C" {
 // Launches the sweep on `stream`; allocates nothing.  x, n, correl, cmin:
 // (nz, s) float32, or (s, nz) when spaxel_major; profile: the same shape,
 // uint8 (prof_bytes 1) or int32 (prof_bytes 4); taps: (nprof, reach)
-// float32; tap_start / tap_len: (nprof,) int32.  x3: 0 for `highest`,
-// 1 for `bf16x3` (cube layout only).  Returns the cudaError_t of the
+// float32; tap_start / tap_len: (nprof,) int32.  x3 must be 0: the
+// bf16x3 form is csrc/sweep_bf16x3.cu.  Returns the cudaError_t of the
 // launch.
 int toeplitz_sweep_launch(const void* x, const void* n, const void* tnum,
                           const void* tden, const void* tstart,
@@ -283,16 +247,13 @@ int toeplitz_sweep_launch(const void* x, const void* n, const void* tnum,
                           int spaxel_major, void* stream) {
 #define SWEEP_ARGS x, n, tnum, tden, tstart, tlen, correl, profile, cmin, \
                    nz, s, nprof, reach, pad_left, stream
+  if (x3) return (int)cudaErrorInvalidValue;
   if (spaxel_major) {
-    if (prof_bytes != 4 || x3) return (int)cudaErrorInvalidValue;
-    return launch<int32_t, false, true>(SWEEP_ARGS);
+    if (prof_bytes != 4) return (int)cudaErrorInvalidValue;
+    return launch<int32_t, true>(SWEEP_ARGS);
   }
-  if (prof_bytes == 1)
-    return x3 ? launch<uint8_t, true, false>(SWEEP_ARGS)
-              : launch<uint8_t, false, false>(SWEEP_ARGS);
-  if (prof_bytes == 4)
-    return x3 ? launch<int32_t, true, false>(SWEEP_ARGS)
-              : launch<int32_t, false, false>(SWEEP_ARGS);
+  if (prof_bytes == 1) return launch<uint8_t, false>(SWEEP_ARGS);
+  if (prof_bytes == 4) return launch<int32_t, false>(SWEEP_ARGS);
 #undef SWEEP_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 )
 
 #: every CUDA source of the port, by name
-KERNELS = ("toeplitz_sweep", "spatial_fsf")
+KERNELS = ("toeplitz_sweep", "sweep_bf16x3", "spatial_fsf")
 
 #: name -> {"command", "seconds", "cached", "ptxas"} of the last load
 BUILD_INFO = {}

@@ -9,7 +9,8 @@ different orders, so correl and correl_min agree at atol 1e-5 + rtol
 1e-5, and the best-profile index may differ only where the two candidate
 profiles' statistics are within 1e-5 of each other.  The sweep cases also
 hold a NaN sample and den = 0 and den < 0 spaxels (see ``_hold`` for what
-the NaN may change).  The spatial kernel
+the NaN may change).  The bf16x3 sweep kernel's split is shown as the
+spatial kernel's is, by the RMS rule below.  The spatial kernel
 sums its products in 64 x 64 tiles, cuBLAS in its own order: atol 1e-5 on
 values of order 1 in both precisions (in bf16x3 a one-ulp difference of a
 float32 intermediate can also move a split's low half by one bf16 step; the
@@ -33,7 +34,9 @@ from origin_tpu_torch.ops import glr, kernels, spatial
 from origin_tpu_torch.ops.convolve import fft2_shape
 from origin_tpu_torch.ops.prec import split_bf16
 from origin_tpu_torch.ops.spatial import spatial_fsf
-from origin_tpu_torch.ops.sweep import spectral_sweep, sweep_taps
+from origin_tpu_torch.ops.sweep import (
+    spectral_sweep, sweep_taps, toeplitz_blocks,
+)
 
 torch.set_num_threads(2)
 
@@ -52,12 +55,16 @@ def cuda():
 HAND_BANKS = dict(short_spans=[1, 2, 3, 5, 7, 9, 13, 17, 21],
                   k260=[1 + (5 * k) % 21 for k in range(260)])
 DICOS = [DICO_3FWHM, DICO_FWHM_2_12, *HAND_BANKS]
-# nz of 1, RZ -+ 1 and TZ -+ 1 of the kernel's tile (8 channels a thread,
-# 64 a block), twice those, and others; spaxel counts of 15, 49 and 600
-# leave a partial warp
+# nz of 1, RZ -+ 1 and TZ -+ 1 of the float32 kernel's tile (8 channels a
+# thread, 64 a block), twice those, and others; spaxel counts of 15, 49 and
+# 600 leave a partial warp.  The bf16x3 kernel's tile is 64 channels x 32
+# spaxels, its float4 loads need S % 4 == 0: odd spaxel counts off every
+# multiple of 32 (63, 65, 187) at nz 64 -+ 1 and 200 take its scalar loads,
+# 36 and 600 its float4 loads with a ragged last tile
 SWEEP_SHAPES = [(700, 20, 30), (77, 3, 5), (1, 3, 5), (7, 3, 5), (9, 3, 5),
                 (15, 3, 5), (17, 3, 5), (63, 3, 5), (65, 3, 5), (127, 3, 5),
-                (129, 7, 7)]
+                (129, 7, 7), (63, 7, 9), (65, 7, 9), (63, 5, 13),
+                (65, 5, 13), (200, 11, 17), (130, 4, 9)]
 
 
 def _problem(dico, nz, ny, nx, dev, seed=6, nan=False):
@@ -113,23 +120,30 @@ def _assert_ties(p, pr, x, n, t_num, t_den, pad_left, precision="highest"):
 
 def _nan_regions(x, t_num, t_den, pad_left):
     """Boolean cubes of the voxels whose NaN sample of x lies in their
-    reach, in every profile's span, and in the (W, block) window of their
-    block in the banks.  The banded plain version multiplies a NaN by the
-    zero taps of its whole window, the kernel only within each profile's
-    span (PERF.md section 7)."""
+    reach, in every profile's span, in the (W, block) window of their
+    block in the banks, and in a 16 x 16 block of some profile's band over
+    their 16-channel group.  The banded plain version multiplies a NaN by
+    the zero taps of its whole window, the float32 kernel only within each
+    profile's span, the bf16x3 kernel within the blocks of each profile's
+    k-step range (``ops/sweep.py:spectral_sweep``)."""
     nprof, window, block = t_num.shape
-    _, _, start, length = sweep_taps(t_num, t_den)
+    taps_num, _, start, length = sweep_taps(t_num, t_den)
+    _, d_first, d_last = toeplitz_blocks(taps_num, start, length)
     reach = window - block + 1
     regions = [torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-               for _ in range(3)]
+               for _ in range(4)]
     z = torch.arange(x.shape[0], device=x.device)
+    g0 = (z // 16 * 16 - pad_left)[:, None]
     for zn, yy, xx in torch.isnan(x).nonzero().tolist():
         d = zn - z + pad_left
         spans = ((d[:, None] >= start[None, :])
                  & (d[:, None] < (start + length)[None, :]))
         w0 = z // block * block - pad_left
+        blocks = ((zn >= g0 + 16 * d_first[None, :])
+                  & (zn < g0 + 16 * (d_last[None, :] + 1)))
         for r, m in zip(regions, ((d >= 0) & (d < reach), spans.all(1),
-                                 (zn >= w0) & (zn < w0 + window))):
+                                 (zn >= w0) & (zn < w0 + window),
+                                 blocks.any(1))):
             r[:, yy, xx] |= m
     return regions
 
@@ -140,10 +154,11 @@ def _hold(got, ref, x, n, t_num, t_den, pad_left, precision="highest",
     version's: values at atol 1e-5 + rtol 1e-5, indices equal but at
     near-ties, of ``index_dtype`` (by default the cube layout's: uint8 up
     to 255 profiles, int32 above).  Where x holds a NaN, the kernel's
-    values are NaN exactly in its reach (the longest profile spans the
-    reach) and the comparison skips the rest of the plain version's
-    window, and its indices where the NaN is outside some profile's
-    span."""
+    values are NaN exactly in its footprint: the reach at ``highest`` (the
+    longest profile spans it), its blocks' window in bf16x3 (which holds
+    the reach).  The comparison skips the values where the NaN lies in
+    either side's window but outside the reach, and the indices where it
+    lies in either window but outside some profile's span."""
     (c, p, m), (cr, pr, mr) = got, ref
     if index_dtype is None:
         wide = t_num.shape[0] > 255
@@ -152,14 +167,16 @@ def _hold(got, ref, x, n, t_num, t_den, pad_left, precision="highest",
     assert torch.all(c[:, 0, 0] == 0)
     if torch.isnan(x).any():
         assert torch.all(c[:, 0, 1] == 0)  # den < 0
-        in_reach, in_spans, in_window = _nan_regions(x, t_num, t_den,
-                                                     pad_left)
-        assert torch.isnan(c[in_reach]).all()
-        assert torch.isnan(m[in_reach]).all()
-        spread = in_window & ~in_reach
-        assert torch.isfinite(c[spread]).all()
+        in_reach, in_spans, in_window, in_blocks = _nan_regions(
+            x, t_num, t_den, pad_left)
+        footprint = in_blocks if precision == "bf16x3" else in_reach
+        assert not (in_reach & ~footprint).any()
+        assert torch.equal(torch.isnan(c), footprint)
+        assert torch.equal(torch.isnan(m), footprint)
+        either = in_window | footprint
+        spread = either & ~in_reach
         c, m = torch.where(spread, cr, c), torch.where(spread, mr, m)
-        p = torch.where(in_window & ~in_spans, pr, p)
+        p = torch.where(either & ~in_spans, pr, p)
     torch.testing.assert_close(c, cr, atol=1e-5, rtol=1e-5, equal_nan=True)
     torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5, equal_nan=True)
     _assert_ties(p, pr, x, n, t_num, t_den, pad_left, precision)
@@ -269,6 +286,33 @@ def test_cuda_spatial_bf16x3_splits(cuda, case):
           f"{sep / _rms(got - plain):.3g}")
     assert sep >= 4 * noise
     assert sep >= 1.5 * _rms(got - plain)
+
+
+def _sweep_values(out):
+    """correl and correl_min of a sweep's outputs, stacked."""
+    return torch.stack((out[0], out[2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dico", DICOS)
+def test_cuda_bf16x3_sweep_splits(cuda, dico):
+    """The bf16x3 sweep kernel computes the three passes: it lies away from
+    the float32 kernel, by at least 4 times that kernel's order noise (on
+    an H100 the float32 kernel and its cuBLAS plain version agree bit for
+    bit here, so the noise is 0), and at least 1.5 times nearer its own
+    plain version."""
+    nz = 700
+    (x, n, t_num, t_den), pad_left = _problem(dico, nz, 20, 30, cuda)
+    args = (x, n, t_num, t_den, pad_left, nz)
+    got = _sweep_values(spectral_sweep(*args, precision="bf16x3"))
+    plain = _sweep_values(glr.toeplitz_sweep(*args, precision="bf16x3"))
+    highest = _sweep_values(spectral_sweep(*args))
+    noise = _rms(highest - _sweep_values(glr.toeplitz_sweep(*args)))
+    sep, err = _rms(got - highest), _rms(got - plain)
+    print(f"RMS: noise {noise:.3g}, from plain {err:.3g}, from highest "
+          f"{sep:.3g}")
+    assert sep > 0 and sep >= 4 * noise
+    assert sep >= 1.5 * err
 
 
 @pytest.mark.gpu

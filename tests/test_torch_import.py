@@ -112,7 +112,8 @@ def test_device_is_explicit():
             resolve_device("cuda")
 
 
-@pytest.mark.parametrize("name", ["toeplitz_sweep", "spatial_fsf"])
+@pytest.mark.parametrize("name", ["toeplitz_sweep", "sweep_bf16x3",
+                                  "spatial_fsf"])
 def test_kernel_build_without_nvcc_raises_with_the_spill_rule(
         name, monkeypatch):
     """No fallback: a kernel that cannot be built raises and names its

@@ -7,7 +7,15 @@ interpret=True)``) and its XLA Toeplitz sweep (``glr_spectral_mxu``):
 correl and correl_min at atol 1e-5 (the frameworks sum the 186-row band
 in different orders), profile indices equal, with the same dtype.
 
-The CUDA kernel has no CPU mode: its parity tests are in
+The bf16x3 kernel runs the sweep as a banded matmul over 16 x 16 blocks of
+each profile's Toeplitz band (``toeplitz_blocks``, split by
+``bf16x3_blocks``).  The blocks are held to the banks bit for bit, their
+k-step ranges to the spans, and a product built here through them, per
+16-channel group in the kernel's three passes, to the plain bf16x3 sweep
+at atol 1e-5 (float32 sums in another order), indices equal but at
+near-ties (1e-5).
+
+The CUDA kernels have no CPU mode: their parity tests are in
 tests/test_torch_gpu.py, marked ``gpu``.
 """
 
@@ -23,7 +31,10 @@ from origin_tpu.core.profiles import (
 from origin_tpu.ops.glr import glr_spectral_mxu
 from origin_tpu.ops.pallas_sweep import toeplitz_sweep_pallas
 from origin_tpu_torch.ops import glr as tglr
-from origin_tpu_torch.ops.sweep import spectral_sweep, sweep_taps
+from origin_tpu_torch.ops.prec import split_bf16
+from origin_tpu_torch.ops.sweep import (
+    bf16x3_blocks, spectral_sweep, sweep_taps, toeplitz_blocks,
+)
 
 torch.set_num_threads(2)
 
@@ -175,3 +186,141 @@ def test_plain_sweep_slabs_agree():
     many = tglr.toeplitz_sweep(*args, max_transient_bytes=40_000)
     for a, b in zip(one, many):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# hand-made profiles of these lengths (centre (len - 1) // 2, random taps),
+# as in tests/test_torch_gpu.py: spans of 1 to 21 taps, and 260 profiles
+HAND_BANKS = dict(short_spans=[1, 2, 3, 5, 7, 9, 13, 17, 21],
+                  k260=[1 + (5 * k) % 21 for k in range(260)])
+BANKS = [DICO_3FWHM, DICO_FWHM_2_12, *HAND_BANKS]
+
+
+def _any_banks(name, nz, seed=6):
+    if name in HAND_BANKS:
+        rng = np.random.default_rng(seed)
+        prepped = [(p, (len(p) - 1) // 2) for p in
+                   (rng.normal(size=m) for m in HAND_BANKS[name])]
+    else:
+        prepped = tglr.prepare_profiles(
+            load_dictionary(default_dictionary_path(name))[0])
+    t_num, t_den, pad_left, _ = tglr.pack_profiles_toeplitz(
+        prepped, block=min(128, nz))
+    return torch.from_numpy(t_num), torch.from_numpy(t_den), pad_left
+
+
+def _rebuild(blocks, window, block):
+    """(K, W, block) banks from (K, ND, 16, 16) blocks: column i, row r is
+    block d = r // 16 - i // 16 at (i % 16, r % 16), 0 outside [0, ND)."""
+    r = torch.arange(window)[:, None]
+    i = torch.arange(block)[None, :]
+    d = r // 16 - i // 16
+    inside = (d >= 0) & (d < blocks.shape[1])
+    return torch.where(inside, blocks[:, d.clamp(0, blocks.shape[1] - 1),
+                                      i % 16, r % 16], 0.0)
+
+
+@pytest.mark.parametrize("bank", BANKS)
+@pytest.mark.parametrize("nz", [128, 77])
+def test_toeplitz_blocks_rebuild_banks_exactly(bank, nz):
+    t_num, t_den, _ = _any_banks(bank, nz)
+    nprof, window, block = t_num.shape
+    taps_num, taps_den, start, length = sweep_taps(t_num, t_den)
+    for taps, bank_t in ((taps_num, t_num), (taps_den, t_den)):
+        blocks, _, _ = toeplitz_blocks(taps, start, length)
+        assert blocks.dtype == torch.float32
+        assert blocks.shape == (nprof, (taps.shape[1] + 14) // 16 + 1, 16, 16)
+        assert torch.equal(_rebuild(blocks, window, block), bank_t)
+    # the kernel's operand: the split_bf16 halves of the same entries
+    planes, _, _ = bf16x3_blocks(taps_num, taps_den, start, length)
+    assert planes.dtype == torch.bfloat16 and planes.is_contiguous()
+    halves = [*split_bf16(t_num), *split_bf16(t_den)]
+    for q, want in enumerate(halves):
+        got = _rebuild(planes[:, :, q].float(), window, block)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bank", BANKS)
+@pytest.mark.parametrize("nz", [128, 77])
+def test_toeplitz_block_ranges_cover_the_spans(bank, nz):
+    t_num, t_den, _ = _any_banks(bank, nz)
+    taps_num, _, start, length = sweep_taps(t_num, t_den)
+    blocks, d_first, d_last = toeplitz_blocks(taps_num, start, length)
+    assert d_first.dtype == d_last.dtype == torch.int32
+    d = torch.arange(blocks.shape[1])[None, :]
+    ranged = (d >= d_first[:, None]) & (d <= d_last[:, None])
+    # block d holds taps 16 d - 15 .. 16 d + 15: exactly the blocks that
+    # meet [start, start + length) are in the range
+    meets = ((16 * d + 15 >= start[:, None])
+             & (16 * d - 15 <= (start + length - 1)[:, None]))
+    assert torch.equal(ranged, meets)
+    nonzero = (blocks != 0).flatten(2).any(2)
+    assert not (nonzero & ~ranged).any()
+    assert (d_last < blocks.shape[1]).all() and (d_first >= 0).all()
+
+
+def _blocked_sweep(x, n, planes, d_first, d_last, pad_left):
+    """The bf16x3 kernel's arithmetic in torch, on (nz, s) x and n: window
+    row r holds sample r - pad_left, split into bf16 halves; group G of 16
+    channels takes, for each profile, the k-steps d_first..d_last of each
+    pass (taps hi x samples hi, taps lo x samples hi, taps hi x samples lo,
+    each k-step a 16 x 16 float32 product of bf16 values), summed (hh +
+    hl) + lh.  Returns (correl, profile, cmin, t) with t (K, nz, s)."""
+    nz, s = x.shape
+    nprof, nd = planes.shape[:2]
+    ng = -(-nz // 16)
+    rows = 16 * (ng + nd - 1)
+
+    def split_window(a):
+        w = torch.zeros((rows, s))
+        m = min(nz, rows - pad_left)
+        w[pad_left:pad_left + m] = a[:m]
+        return [h.reshape(-1, 16, s) for h in split_bf16(w)]
+
+    blk = planes.float()
+    t_all = torch.empty((nprof, nz, s))
+    for k in range(nprof):
+        d0, d1 = int(d_first[k]), int(d_last[k])
+        out = []
+        for q, a in ((0, x), (2, n)):
+            (bh, bl), ah, al = split_window(a), blk[k, :, q], blk[k, :, q + 1]
+            passes = []
+            for at, bt in ((ah, bh), (al, bh), (ah, bl)):
+                acc = torch.zeros((ng, 16, s))
+                for d in range(d0, d1 + 1):
+                    acc = acc + torch.einsum("ab,gbs->gas", at[d],
+                                             bt[d:d + ng])
+                passes.append(acc)
+            out.append(((passes[0] + passes[1]) + passes[2])
+                       .reshape(ng * 16, s)[:nz])
+        num, den = out
+        t_all[k] = num / torch.where(den <= 0, float("inf"), den.sqrt())
+    pdtype = torch.uint8 if nprof <= 255 else torch.int32
+    best = torch.full((nz, s), float("-inf"))
+    low = torch.full((nz, s), float("inf"))
+    arg = torch.zeros((nz, s), dtype=pdtype)
+    for k in range(nprof):
+        t = t_all[k]
+        arg = torch.where(t > best, torch.tensor(k, dtype=pdtype), arg)
+        best = torch.maximum(best, t)
+        low = torch.minimum(low, t)
+    return best, arg, low, t_all
+
+
+@pytest.mark.parametrize("bank", BANKS)
+@pytest.mark.parametrize("nz", [128, 77])
+def test_blocked_bf16x3_product_matches_plain(bank, nz):
+    t_num, t_den, pad_left = _any_banks(bank, nz)
+    cf, nf = _inputs(nz=nz, ny=3, nx=5, seed=7)
+    x, n = torch.from_numpy(cf), torch.from_numpy(nf)
+    taps = sweep_taps(t_num, t_den)
+    planes, d_first, d_last = bf16x3_blocks(*taps)
+    c, p, m, t = _blocked_sweep(x.reshape(nz, -1), n.reshape(nz, -1),
+                                planes, d_first, d_last, pad_left)
+    cr, pr, mr = (a.reshape(nz, -1) for a in tglr.toeplitz_sweep(
+        x, n, t_num, t_den, pad_left, nz, precision="bf16x3"))
+    torch.testing.assert_close(c, cr, atol=1e-5, rtol=0)
+    torch.testing.assert_close(m, mr, atol=1e-5, rtol=0)
+    assert p.dtype == pr.dtype
+    z, s = (p != pr).nonzero(as_tuple=True)
+    gap = (t[p[z, s].long(), z, s] - t[pr[z, s].long(), z, s]).abs()
+    assert (gap <= 1e-5).all()
