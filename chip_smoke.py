@@ -29,8 +29,12 @@ b. the bf16x3 sweep kernel (a banded matmul on the tensor cores) against
    the three bf16 passes; its time, share of its bound and ratio to the
    float32 kernel's time of phase 3;
 c. the spaxel-major sweeps ``matched_filter_spectral`` and
-   ``banded_matmul_spectral``, each called once through its entry point,
-   against their plain versions at 3681 x 100 x 200;
+   ``banded_matmul_spectral`` at 3681 x 100 x 200, K=3 and K=20, each
+   called once through its entry point: against their plain versions, and
+   bit for bit against the float32 sweep's outputs on the cube layout;
+   CUDA-event times of one kernel launch (taps and outputs prebuilt), of
+   the entry and of the plain version, and the kernel's share of its
+   bound;
 d. steps 01-07 of the minicube and of the field with
    ``ORIGIN_TPU_PRECISION=bf16x3``: the spatial and bf16x3 sweep counters
    must move; the minicube's Cat0/Cat1 equal the ``highest`` run's and
@@ -750,61 +754,96 @@ def phase_spatial():
 
 
 # -- phase c ------------------------------------------------------------------
-def phase_spaxel_major():
-    """Each spaxel-major entry called once on the field (the counted
-    path), then compared with its plain version and timed."""
+def _mf_bank(prepped):
+    """The right-zero-padded (K, L) banks and centres of the JAX package's
+    ``_pack_profiles``: squares taken before the cast to float32, as the
+    Toeplitz banks take them."""
     import numpy as np
+
+    bank = np.zeros((2, len(prepped), max(len(p) for p, _ in prepped)),
+                    np.float32)
+    for k, (p, _) in enumerate(prepped):
+        bank[0, k, :len(p)] = p
+        bank[1, k, :len(p)] = np.asarray(p) ** 2
+    return bank[0], bank[1], [c for _, c in prepped]
+
+
+def phase_spaxel_major():
+    """Each spaxel-major entry called once on the field at K=3 and K=20
+    (the counted path), held to its plain version and, bit for bit, to the
+    float32 sweep's outputs on the cube layout; then timed through the
+    entry and as one kernel launch with taps and outputs prebuilt."""
     import torch
 
-    from origin_tpu_torch.core.profiles import DICO_3FWHM
+    from origin_tpu_torch.core.profiles import DICO_3FWHM, DICO_FWHM_2_12
     from origin_tpu_torch.ops import kernels
+    from origin_tpu_torch.ops.sweep import (
+        launch_sweep, spectral_sweep, sweep_taps)
 
     dev = torch.device("cuda")
     nz = FIELD[0]
     x, n = _sweep_inputs(dev)
-    t_num, t_den, pad_left, prepped = _banks(DICO_3FWHM, nz, dev)
-    length = max(len(p) for p, _ in prepped)
-    bank = np.zeros((len(prepped), length), np.float32)
-    for k, (p, _) in enumerate(prepped):
-        bank[k, :len(p)] = p
-    bank2 = bank ** 2
-    centers = [c for _, c in prepped]
+    s = x[0].numel()
     xs = x.reshape(nz, -1).T.contiguous()
     ns = n.reshape(nz, -1).T.contiguous()
-    entries = dict(
-        matched_filter_spectral=(
-            lambda: kernels.matched_filter_spectral(xs, ns, bank, bank2,
-                                                    centers),
-            lambda: kernels.matched_filter_plain(
-                xs, ns, torch.from_numpy(bank), torch.from_numpy(bank2),
-                centers)),
-        banded_matmul_spectral=(
-            lambda: kernels.banded_matmul_spectral(xs, ns, t_num, t_den,
-                                                   pad_left, nz),
-            lambda: kernels.banded_matmul_plain(xs, ns, t_num, t_den,
-                                                pad_left, nz)))
     back = lambda a: a.T.reshape(FIELD)  # noqa: E731
+    correl, cmin = torch.empty_like(xs), torch.empty_like(xs)
+    pidx = torch.empty(xs.shape, dtype=torch.int32, device=dev)
     out = {}
-    for name, (entry, plain) in entries.items():
-        reset_counts()
-        got = entry()
-        torch.cuda.synchronize()
-        launches = read_counts()[name]
-        check(launches == 1, f"{name}: one launch through its entry point")
-        ref = plain()
-        (c, m, p), (cr, mr, pr) = got, ref
-        err, mism, gap = _hold_sweep(name, (back(c), back(p), back(m)),
-                                     (back(cr), back(pr), back(mr)), x, n,
-                                     t_num, t_den, pad_left)
-        del got, ref, c, m, p, cr, mr, pr
-        ms = _time_cuda(entry, reps=10)
-        plain_ms = _time_cuda(plain, reps=2)
+    for dico in (DICO_3FWHM, DICO_FWHM_2_12):
+        t_num, t_den, pad_left, prepped = _banks(dico, nz, dev)
+        k = t_num.shape[0]
+        bank, bank2, centers = _mf_bank(prepped)
+        mf_taps, mf_pad = kernels.mf_taps(bank, bank2, centers)
+        entries = dict(
+            matched_filter_spectral=(
+                lambda: kernels.matched_filter_spectral(xs, ns, bank, bank2,
+                                                        centers),
+                lambda: kernels.matched_filter_plain(
+                    xs, ns, torch.from_numpy(bank), torch.from_numpy(bank2),
+                    centers),
+                tuple(torch.from_numpy(t).to(dev) for t in mf_taps), mf_pad),
+            banded_matmul_spectral=(
+                lambda: kernels.banded_matmul_spectral(xs, ns, t_num, t_den,
+                                                       pad_left, nz),
+                lambda: kernels.banded_matmul_plain(xs, ns, t_num, t_den,
+                                                    pad_left, nz),
+                sweep_taps(t_num, t_den), pad_left))
+        cube = spectral_sweep(x, n, t_num, t_den, pad_left, nz)
         bound, by = _sweep_bound(t_num, t_den, x.numel(), 4, PEAK_FP32)
-        log(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound:.3f} ms ({by})")
-        out[name] = dict(launches=launches, max_abs_err=err,
-                         mismatches=mism, tie_gap=gap, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        for name, (entry, plain, taps, pad) in entries.items():
+            what = f"{name} K={k}"
+            reset_counts()
+            got = entry()
+            torch.cuda.synchronize()
+            launches = read_counts()[name]
+            check(launches == 1, f"{what}: one launch through its entry "
+                  "point")
+            c, m, p = got
+            check(torch.equal(back(c), cube[0])
+                  and torch.equal(back(m), cube[2])
+                  and torch.equal(back(p), cube[1].to(torch.int32)),
+                  f"{what}: correl, cmin and index equal the float32 "
+                  "sweep's on the cube layout bit for bit")
+            ref = plain()
+            cr, mr, pr = ref
+            err, mism, gap = _hold_sweep(what, (back(c), back(p), back(m)),
+                                         (back(cr), back(pr), back(mr)), x,
+                                         n, t_num, t_den, pad_left)
+            del got, ref, c, m, p, cr, mr, pr
+            ms = _time_cuda(lambda: launch_sweep(
+                xs, ns, taps, pad, pidx, correl, cmin, nz, s,
+                spaxel_major=True), reps=10)
+            entry_ms = _time_cuda(entry, reps=10)
+            plain_ms = _time_cuda(plain, reps=2 if k == 3 else 1)
+            log(f"  {what}: kernel {ms:.3f} ms, entry {entry_ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}): "
+                f"{bound / ms:.1%} of the bound")
+            out.setdefault(name, {})[k] = dict(
+                launches=launches, max_abs_err=err, mismatches=mism,
+                tie_gap=gap, ms=ms, entry_ms=entry_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
+        del cube
     return out
 
 
@@ -859,7 +898,7 @@ def _kernel_line(res):
             launches=res["bf16x3"]["launches"]["spatial_fsf"],
             library_ms=spatial["library_ms"], precision="bf16x3",
             **spatial["bf16x3"]),
-        **{name: dict(library_ms=None, **res["spaxel_major"][name])
+        **{name: dict(library_ms=None, **res["spaxel_major"][name][3])
            for name in ("matched_filter_spectral",
                         "banded_matmul_spectral")})
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

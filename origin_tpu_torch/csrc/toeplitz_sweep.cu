@@ -23,13 +23,24 @@
 //
 // Layout: threads on neighbouring spaxels.  In the cube's (Nz, S) layout
 // every global load and store is coalesced and no transpose or padded
-// copy is made; the spaxel-major layout stages its window with threads
-// along z (coalesced) and stores uncoalesced.  A block copies a
-// (TZ + reach - 1) x TS window of x and n into shared memory with
-// cp.async (all copies in flight at once, no registers), plus all taps;
-// every thread then runs RZ consecutive channels of one spaxel through all
-// K profiles, keeping max / argmax / min in registers: the inputs are read
-// from device memory once for every K, as in the TPU kernel.
+// copy is made.  A block copies a (TZ + reach - 1) x TS window of x and n
+// into shared memory with cp.async (all copies in flight at once, no
+// registers), plus all taps; every thread then runs RZ consecutive
+// channels of one spaxel through all K profiles, keeping max / argmax /
+// min in registers: the inputs are read from device memory once for every
+// K, as in the TPU kernel.
+//
+// The spaxel-major (S, Nz) form runs the same core on the same staged
+// window, transposed at both ends.  Its copies run with threads along z;
+// its results go through shared memory: after the profile loop the block
+// writes them into [spaxel][z] tiles over the staging planes and stores
+// each spaxel's run of TZ channels with consecutive threads on consecutive
+// z, full 128-byte lines but for a run's two ends.  Stored straight from
+// the registers, each warp store touched 32 rows Nz floats apart, a
+// sector each for 4 of its 32 bytes: 3.3 of its 4.6 ms at K=3 on an H100
+// 80GB HBM3 at 700 W.  Its tile stays the cube layout's 64 channels: 128,
+// which halves the halo of reach - 1 rows that every tile stages again,
+// ran 4% slower at K=3 and level at K=20 (PERF.md).
 //
 // Register blocking along z: the RZ channels of a thread share their
 // samples, so a tap step loads one tap (a broadcast) and one new sample
@@ -55,7 +66,9 @@
 // registers, 16 warps) runs fewer instructions but ran slower, since the
 // FMAs wait on shared-memory loads and on the division, which more warps
 // hide.  On an H100 80GB HBM3 at 700 W that is 34% of the FP32 bound for
-// the 3-profile dictionary and 44% for the 20-profile one (PERF.md).
+// the 3-profile dictionary and 44% for the 20-profile one (PERF.md); the
+// spaxel-major form, whose int32 index adds 3 bytes a voxel, runs 0.17 ms
+// behind it at both (the output tiles' round trip and barriers).
 //
 // Arithmetic: float32 FMAs, IEEE sqrtf and division (no fast math), the
 // den <= 0 -> +inf guard, NaN propagation of jnp.maximum / jnp.minimum.
@@ -73,11 +86,17 @@ constexpr int RZ = 8;         // channels per thread
 constexpr int WY = 8;         // threads along z (threadIdx.y)
 constexpr int TZ = RZ * WY;   // channels per block
 constexpr int NT = TS * WY;
+constexpr int OROW = TZ + 1;  // spaxel-major output tile row: one spaxel's
+                              // TZ channels, padded against bank conflicts
 
-size_t smem_bytes(int nprof, int reach) {
+// the staging window and taps; in the spaxel-major form at least the three
+// output tiles that alias them
+size_t smem_bytes(int nprof, int reach, bool smaj) {
   size_t rows = TZ + reach - 1;
-  return (2 * rows * SROW + 2 * (size_t)nprof * reach) * sizeof(float)
-         + 2 * (size_t)nprof * sizeof(int);
+  size_t staging = (2 * rows * SROW + 2 * (size_t)nprof * reach)
+                   * sizeof(float) + 2 * (size_t)nprof * sizeof(int);
+  size_t tiles = 3 * (size_t)TS * OROW * sizeof(float);
+  return smaj && tiles > staging ? tiles : staging;
 }
 
 // dst = *src (4 bytes, global to shared, asynchronous), or 0 unless `in`
@@ -171,7 +190,10 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ n,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   const int zl = ty * RZ;
-  if (sp >= s || z0 + zl >= nz) return;
+  // the spaxel-major epilogue has barriers: every thread stays to them and
+  // runs the loop, those past the edges on the zero-filled samples (a loop
+  // count that skipped them ran 7% slower at K=20)
+  if (!SMAJ && (sp >= s || z0 + zl >= nz)) return;
 
   float best[RZ], low[RZ];
   int arg[RZ];
@@ -197,14 +219,41 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ n,
       low[t] = (tv < low[t] || tv != tv) ? tv : low[t];
     }
   }
+  if constexpr (SMAJ) {
+    // the three [spaxel][z] output tiles alias the planes and the taps,
+    // which every thread has finished reading at the first barrier
+    float* ob = smem;
+    float* ol = ob + TS * OROW;
+    int* oa = reinterpret_cast<int*>(ol + TS * OROW);
+    __syncthreads();
 #pragma unroll
-  for (int t = 0; t < RZ; ++t) {
-    const int z = z0 + zl + t;
-    if (z < nz) {
-      const size_t off = SMAJ ? (size_t)sp * nz + z : (size_t)z * s + sp;
-      correl[off] = best[t];
-      profile[off] = static_cast<P>(arg[t]);
-      cmin[off] = low[t];
+    for (int t = 0; t < RZ; ++t) {
+      ob[tx * OROW + zl + t] = best[t];
+      ol[tx * OROW + zl + t] = low[t];
+      oa[tx * OROW + zl + t] = arg[t];
+    }
+    __syncthreads();
+    for (int e = tid; e < TS * TZ; e += NT) {
+      const int c = e / TZ;
+      const int r = e % TZ;
+      const int spc = blockIdx.x * TS + c;
+      if (spc < s && z0 + r < nz) {
+        const size_t off = (size_t)spc * nz + z0 + r;
+        correl[off] = ob[c * OROW + r];
+        profile[off] = static_cast<P>(oa[c * OROW + r]);
+        cmin[off] = ol[c * OROW + r];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < RZ; ++t) {
+      const int z = z0 + zl + t;
+      if (z < nz) {
+        const size_t off = (size_t)z * s + sp;
+        correl[off] = best[t];
+        profile[off] = static_cast<P>(arg[t]);
+        cmin[off] = low[t];
+      }
     }
   }
 }
@@ -214,7 +263,7 @@ int launch(const void* x, const void* n, const void* tnum, const void* tden,
            const void* tstart, const void* tlen, void* correl, void* profile,
            void* cmin, int nz, int s, int nprof, int reach, int pad_left,
            void* stream) {
-  const size_t smem = smem_bytes(nprof, reach);
+  const size_t smem = smem_bytes(nprof, reach, SMAJ);
   cudaError_t err = cudaFuncSetAttribute(
       sweep_kernel<P, SMAJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

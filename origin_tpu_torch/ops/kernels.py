@@ -20,13 +20,14 @@ path: the JAX package keeps both as reference kernels.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .glr import toeplitz_sweep
-from .sweep import check_tensor, launch_sweep, sweep_taps, taps_extent
+from .sweep import check_tensor, launch_sweep, sweep_taps
 
 __all__ = ["matched_filter_spectral", "banded_matmul_spectral",
-           "matched_filter_plain", "banded_matmul_plain"]
+           "matched_filter_plain", "banded_matmul_plain", "mf_taps"]
 
 
 def _spaxel_inputs(x, n):
@@ -84,6 +85,55 @@ def banded_matmul_plain(x, n, t_num, t_den, pad_left, nz):
     return back(c), back(m), back(p).to(torch.int32)
 
 
+def mf_taps(prof_bank, prof2_bank, centers):
+    """The sweep kernel's taps for a (K, L) profile bank, built on the host.
+
+    Row k holds ``prof_bank[k]`` (``prof2_bank[k]`` in the den taps) from
+    column ``pad_left - centers[k]`` with ``pad_left = max(centers)``, the
+    convention of the Toeplitz banks (``glr.pack_profiles_toeplitz``), cut
+    to the columns ``[lo, hi)`` that some profile's nonzero span uses.
+    Returns ``((taps_num, taps_den, start, length), pad_left - lo)``: the
+    (K, hi - lo) float32 taps, bit-identical to the bank entries, the (K,)
+    int32 extents of each row's span (as ``sweep.taps_extent`` gives them;
+    0 for a row without a nonzero tap) and the pad of the cut taps, all
+    numpy.
+    """
+    prof, prof2 = (torch.as_tensor(a, dtype=torch.float32).cpu().numpy()
+                   for a in (prof_bank, prof2_bank))
+    length = prof.shape[1]
+    pad_left = max(centers)
+    nonzero = (prof != 0) | (prof2 != 0)
+    used = nonzero.any(axis=1)
+    first = np.argmax(nonzero, axis=1)
+    last = length - np.argmax(nonzero[:, ::-1], axis=1)  # one past the span
+    col = pad_left - np.asarray(centers) + first  # column of each span
+    lo = int(np.min(col[used], initial=pad_left))
+    hi = int(np.max((col + last - first)[used], initial=pad_left + 1))
+    taps = np.zeros((2, prof.shape[0], hi - lo), np.float32)
+    start = np.where(used, col - lo, 0).astype(np.int32)
+    span = np.where(used, last - first, 0).astype(np.int32)
+    for k in np.flatnonzero(used):
+        cut = slice(start[k], start[k] + span[k])
+        taps[0, k, cut] = prof[k, first[k]:last[k]]
+        taps[1, k, cut] = prof2[k, first[k]:last[k]]
+    return (taps[0], taps[1], start, span), pad_left - lo
+
+
+def _upload_taps(taps, dev):
+    """:func:`mf_taps`'s taps and extents on ``dev``, in one asynchronous
+    copy from pinned memory."""
+    taps_num, taps_den, start, length = taps
+    nprof, reach = taps_num.shape
+    m = nprof * reach
+    host = torch.from_numpy(np.concatenate(
+        [taps_num.ravel().view(np.int32), taps_den.ravel().view(np.int32),
+         start, length])).pin_memory()
+    buf = host.to(dev, non_blocking=True)
+    f = buf[:2 * m].view(torch.float32)
+    return (f[:m].view(nprof, reach), f[m:].view(nprof, reach),
+            buf[2 * m:2 * m + nprof], buf[2 * m + nprof:])
+
+
 def matched_filter_spectral(x, n, prof_bank, prof2_bank, centers):
     """Fused spectral matched filter over a (K, L) profile bank.
 
@@ -105,24 +155,16 @@ def matched_filter_spectral(x, n, prof_bank, prof2_bank, centers):
     dev = x.device
     s, nz = _spaxel_inputs(x, n)
     centers = tuple(int(c) for c in centers)
-    prof = torch.as_tensor(prof_bank, dtype=torch.float32, device=dev)
-    prof2 = torch.as_tensor(prof2_bank, dtype=torch.float32, device=dev)
     if dev.type == "cpu":
-        return matched_filter_plain(x, n, prof, prof2, centers)
+        return matched_filter_plain(
+            x, n, torch.as_tensor(prof_bank, dtype=torch.float32),
+            torch.as_tensor(prof2_bank, dtype=torch.float32), centers)
     if dev.type != "cuda":
         raise ValueError(f"matched_filter_spectral: unsupported device {dev}")
-    nprof, length = prof.shape
-    # row k: prof_bank[k, j] at pad_left - centers[k] + j
-    pad_left = max(centers)
-    reach = pad_left - min(centers) + length
-    taps_num = torch.zeros((nprof, reach), dtype=torch.float32, device=dev)
-    taps_den = torch.zeros_like(taps_num)
-    for k, c in enumerate(centers):
-        taps_num[k, pad_left - c:pad_left - c + length] = prof[k]
-        taps_den[k, pad_left - c:pad_left - c + length] = prof2[k]
+    taps, pad_left = mf_taps(prof_bank, prof2_bank, centers)
     correl, cmin, pidx = _outputs(s, nz, dev)
-    launch_sweep(x, n, taps_extent(taps_num, taps_den), pad_left, pidx,
-                 correl, cmin, nz, s, spaxel_major=True)
+    launch_sweep(x, n, _upload_taps(taps, dev), pad_left, pidx, correl, cmin,
+                 nz, s, spaxel_major=True)
     matched_filter_spectral.launches += 1
     return correl, cmin, pidx
 

@@ -56,27 +56,33 @@ HAND_BANKS = dict(short_spans=[1, 2, 3, 5, 7, 9, 13, 17, 21],
                   k260=[1 + (5 * k) % 21 for k in range(260)])
 DICOS = [DICO_3FWHM, DICO_FWHM_2_12, *HAND_BANKS]
 # nz of 1, RZ -+ 1 and TZ -+ 1 of the float32 kernel's tile (8 channels a
-# thread, 64 a block), twice those, and others; spaxel counts of 15, 49 and
-# 600 leave a partial warp.  The bf16x3 kernel's tile is 64 channels x 32
-# spaxels, its float4 loads need S % 4 == 0: odd spaxel counts off every
-# multiple of 32 (63, 65, 187) at nz 64 -+ 1 and 200 take its scalar loads,
-# 36 and 600 its float4 loads with a ragged last tile
+# thread, 64 a block, in both layouts), twice those, and others; spaxel
+# counts of 15, 49 and 600 leave a partial warp.  The bf16x3 kernel's tile
+# is 64 channels x 32 spaxels, its float4 loads need S % 4 == 0: odd
+# spaxel counts off every multiple of 32 (63, 65, 187) at nz 64 -+ 1 and
+# 200 take its scalar loads, 36 and 600 its float4 loads with a ragged last
+# tile
 SWEEP_SHAPES = [(700, 20, 30), (77, 3, 5), (1, 3, 5), (7, 3, 5), (9, 3, 5),
                 (15, 3, 5), (17, 3, 5), (63, 3, 5), (65, 3, 5), (127, 3, 5),
                 (129, 7, 7), (63, 7, 9), (65, 7, 9), (63, 5, 13),
                 (65, 5, 13), (200, 11, 17), (130, 4, 9)]
 
 
+def _profiles(dico, rng):
+    """(profile, centre) pairs of a dictionary or of a hand-made bank, the
+    latter drawn from ``rng``."""
+    if dico in HAND_BANKS:
+        return [(p, (len(p) - 1) // 2) for p in
+                (rng.normal(size=m) for m in HAND_BANKS[dico])]
+    profiles, _ = load_dictionary(default_dictionary_path(dico))
+    return glr.prepare_profiles(profiles)
+
+
 def _problem(dico, nz, ny, nx, dev, seed=6, nan=False):
     """Cubes and banks; den = 0 at spaxel (0, 0); with ``nan``, den < 0 at
     spaxel (0, 1) and one NaN sample of x at spaxel (0, 2)."""
     rng = np.random.default_rng(seed)
-    if dico in HAND_BANKS:
-        prepped = [(p, (len(p) - 1) // 2) for p in
-                   (rng.normal(size=m) for m in HAND_BANKS[dico])]
-    else:
-        profiles, _ = load_dictionary(default_dictionary_path(dico))
-        prepped = glr.prepare_profiles(profiles)
+    prepped = _profiles(dico, rng)
     t_num, t_den, pad_left, _ = glr.pack_profiles_toeplitz(
         prepped, block=min(128, nz))
     x = rng.normal(size=(nz, ny, nx)).astype(np.float32)
@@ -315,16 +321,34 @@ def test_cuda_bf16x3_sweep_splits(cuda, dico):
     assert sep >= 1.5 * err
 
 
+def _mf_bank(prepped):
+    """The right-zero-padded (K, L) banks and centres of the JAX package's
+    ``_pack_profiles``: squares taken before the cast to float32, as the
+    Toeplitz banks take them."""
+    bank = np.zeros((2, len(prepped), max(len(q) for q, _ in prepped)),
+                    np.float32)
+    for k, (q, _) in enumerate(prepped):
+        bank[0, k, :len(q)] = q
+        bank[1, k, :len(q)] = np.asarray(q) ** 2
+    return bank[0], bank[1], [c for _, c in prepped]
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("nan", [False, True])
 @pytest.mark.parametrize("entry", ["banded", "matched_filter"])
-def test_cuda_spaxel_major_sweeps_match_plain(cuda, entry, nan):
-    """With ``nan``, a NaN sample and a den < 0 spaxel: the kernels sum
-    each profile's span only, the banded plain version its whole (W,
-    block) window, so ``_hold``'s footprint rule pins where they differ."""
-    nz = 700
-    (x, n, t_num, t_den), pad_left = _problem(DICO_FWHM_2_12, nz, 20, 30,
-                                              cuda, nan=nan)
+@pytest.mark.parametrize("dico", DICOS)
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+def test_cuda_spaxel_major_sweeps_match_plain(cuda, shape, dico, entry):
+    """With a NaN sample and a den < 0 spaxel: the kernels sum each
+    profile's span only, the banded plain version its whole (W, block)
+    window, so ``_hold``'s footprint rule pins where they differ.  Both
+    entries run the float32 sweep's arithmetic on the same taps, so their
+    outputs equal ``spectral_sweep``'s on the cube layout bit for bit."""
+    nz = shape[0]
+    (x, n, t_num, t_den), pad_left = _problem(dico, *shape, cuda, nan=True)
     xs = x.reshape(nz, -1).T.contiguous()
     ns = n.reshape(nz, -1).T.contiguous()
     if entry == "banded":
@@ -334,24 +358,21 @@ def test_cuda_spaxel_major_sweeps_match_plain(cuda, entry, nan):
         cr, mr, pr = kernels.banded_matmul_plain(xs, ns, t_num, t_den,
                                                  pad_left, nz)
     else:
-        profiles, _ = load_dictionary(default_dictionary_path(DICO_FWHM_2_12))
-        prepped = glr.prepare_profiles(profiles)
-        length = max(len(q) for q, _ in prepped)
-        bank = np.zeros((len(prepped), length), np.float32)
-        for k, (q, _) in enumerate(prepped):
-            bank[k, :len(q)] = q
-        centers = [c for _, c in prepped]
+        bank, bank2, centers = _mf_bank(_profiles(dico,
+                                                  np.random.default_rng(6)))
         fn = kernels.matched_filter_spectral
         before = fn.launches
-        c, m, p = fn(xs, ns, bank, bank ** 2, centers)
+        c, m, p = fn(xs, ns, bank, bank2, centers)
         cr, mr, pr = kernels.matched_filter_plain(
-            xs, ns, torch.from_numpy(bank), torch.from_numpy(bank ** 2),
-            centers)
+            xs, ns, torch.from_numpy(bank), torch.from_numpy(bank2), centers)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     back = lambda a: a.T.reshape(x.shape)
     _hold((back(c), back(p), back(m)), (back(cr), back(pr), back(mr)), x, n,
           t_num, t_den, pad_left, index_dtype=torch.int32)
+    ck, pk, mk = spectral_sweep(x, n, t_num, t_den, pad_left, nz)
+    assert _same_bits(back(c), ck) and _same_bits(back(m), mk)
+    assert torch.equal(back(p), pk.to(torch.int32))
 
 
 @pytest.mark.gpu

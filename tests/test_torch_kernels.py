@@ -37,14 +37,18 @@ from origin_tpu.ops.pallas_kernels import (
 )
 from origin_tpu.ops.pallas_prec import split_bf16 as jax_split
 from origin_tpu.ops.pallas_sweep import toeplitz_sweep_pallas
+from origin_tpu_torch.core.profiles import (
+    DICO_3FWHM, DICO_FWHM_2_12, default_dictionary_path, load_dictionary,
+)
 from origin_tpu_torch.ops import glr as tglr
 from origin_tpu_torch.ops.kernels import (
     banded_matmul_spectral,
     matched_filter_spectral,
+    mf_taps,
 )
 from origin_tpu_torch.ops.prec import split_bf16
 from origin_tpu_torch.ops.spatial import spatial_fsf, spatial_kernel_admits
-from origin_tpu_torch.ops.sweep import spectral_sweep
+from origin_tpu_torch.ops.sweep import spectral_sweep, sweep_taps
 
 torch.set_num_threads(2)
 
@@ -198,6 +202,10 @@ def test_bf16x3_sweep_plain_matches_jax_kernel(fwhms, seed):
     assert np.abs(c - hi[0].numpy()).max() > 0
 
 
+def _two_gaussians():
+    return [gaussian_profile(f, 41, 20) for f in (2.0, 6.0)]
+
+
 def test_matched_filter_plain_matches_jax_entry():
     # the inputs of tests/test_ops.py:648
     rng = np.random.default_rng(14)
@@ -205,8 +213,7 @@ def test_matched_filter_plain_matches_jax_entry():
     s = ny * nx
     cf = rng.normal(size=(nz, ny, nx)).astype(np.float32)
     nf = rng.uniform(0.5, 2.0, size=(nz, ny, nx)).astype(np.float32)
-    prepped = jglr.prepare_profiles(
-        [gaussian_profile(f, 41, 20) for f in (2.0, 6.0)])
+    prepped = jglr.prepare_profiles(_two_gaussians())
     pb, p2b, centers = jglr._pack_profiles(prepped)
     x = np.ascontiguousarray(cf.reshape(nz, s).T)
     n = np.ascontiguousarray(nf.reshape(nz, s).T)
@@ -224,6 +231,26 @@ def test_matched_filter_plain_matches_jax_entry():
     t_num, t_den, pad_left, _ = tglr.pack_profiles_toeplitz(prepped,
                                                             block=128)
     _assert_indices_equal_but_ties(p, pr, x, n, t_num, t_den, pad_left)
+
+
+@pytest.mark.parametrize("bank", [DICO_3FWHM, DICO_FWHM_2_12,
+                                  "two_gaussians"])
+def test_mf_taps_are_the_toeplitz_banks_taps(bank):
+    """The matched filter's host-built taps are column 0 of the Toeplitz
+    banks of the same profiles, bit for bit, cut to the same reach, with
+    the same extents and pad: so both spaxel-major entries, and the
+    float32 sweep, run the same FMAs in the same order."""
+    profiles = (_two_gaussians() if bank == "two_gaussians" else
+                load_dictionary(default_dictionary_path(bank))[0])
+    prepped = tglr.prepare_profiles(profiles)
+    pb, p2b, centers = jglr._pack_profiles(prepped)
+    (taps_num, taps_den, start, length), pad = mf_taps(pb, p2b, centers)
+    t_num, t_den, pad_left, _ = tglr.pack_profiles_toeplitz(prepped)
+    ref = sweep_taps(torch.from_numpy(t_num), torch.from_numpy(t_den))
+    assert pad == pad_left
+    for got, want in zip((taps_num, taps_den, start, length), ref):
+        assert got.dtype == want.numpy().dtype
+        np.testing.assert_array_equal(got, want.numpy())
 
 
 def _banded_inputs(nan=False):
