@@ -13,12 +13,15 @@ Phases, each fatal on failure:
 3. hold the GLR sweep kernel against its plain torch version on the card
    at 3681 x 100 x 200 for the 3- and 20-profile dictionaries, time both
    with CUDA events, and print the kernel's share of its bound;
-4. steps 01-07 on the synthetic minicube (tools_torch/synthetic.py) with
-   ``device="cuda"``;
-5. steps 01-07 on the synthetic 3681 x 100 x 200 field
+4. steps 01-09 on the synthetic minicube (tools_torch/synthetic.py) with
+   ``device="cuda"``: Cat2 row for row against the JAX package's
+   (``GOLD_CAT2``, from tools_torch/minicube_cat2.py), Cat3 against the
+   goldens (14 lines, 13 sources, 2 of comp=1);
+5. steps 01-09 on the synthetic 3681 x 100 x 200 field
    (tools_torch/synthetic.make_field, seed 7), twice (cold, then warm),
    with per-step walls and peak device memory; the sweep's launch counter
-   must move;
+   must move; on the cold run, step 08's line estimation of the first 16
+   Cat1 rows on the card against the port's own on the CPU;
 a. the spatial FSF kernel against its plain version at 3681 x 100 x 200,
    at ``highest`` and in bf16x3, with two weighted fields on a 256-channel
    cut, and on a 300 x 300 x 256 cut; CUDA-event times of the kernel, the
@@ -43,7 +46,8 @@ d. steps 01-07 of the minicube and of the field with
    within 0.005.
 
 In phases 4, 5 and d, steps 05-07 are then re-run with the plain versions
-in place of the kernels, and the two catalogs must agree row for row.  The
+in place of the kernels (after the step 08-09 checks: the re-run replaces
+the Cat1 under Cat2), and the two catalogs must agree row for row.  The
 std threshold, which step 04 does not touch, is held within 0.02 of the
 JAX package's.  What step 04 decides is held to a reference that runs the
 same algorithm to convergence, because the JAX package stops its power
@@ -85,6 +89,32 @@ FULL_BUDGET_MINI_THRESHOLD = 4.564202
 # the field with step 04 from the float64 oracle, steps 05-07 from the port
 # on an H100 (tools_torch/field_step04.py)
 ORACLE_FIELD = dict(threshold=5.224504, cat0=66, cat1=58)
+# the minicube's Cat2 from the JAX package on the CPU with its power
+# iterations run to their whole budget (tools_torch/minicube_cat2.py)
+GOLD_CAT2 = dict(
+    x=[18, 16, 16, 20, 52, 0, 45, 56, 12, 34, 30, 8, 42, 59],
+    y=[22, 23, 11, 25, 52, 10, 20, 13, 40, 0, 45, 6, 38, 19],
+    z=[45, 98, 80, 120, 139, 152, 200, 244, 260, 277, 320, 429, 300, 457],
+    num_line=[1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14],
+    flux=[68.60468292236328, 147.89857482910156, 122.33650207519531,
+          790.5428466796875, 467.3609924316406, 121.97797393798828,
+          345.7584533691406, 48.7840576171875, 141.0355682373047,
+          79.29041290283203, 87.35733795166016, -38.749977111816406,
+          950.5963134765625, -3.566831588745117],
+    residual=[0.8736013174057007, 0.6585911512374878, 0.7850394248962402,
+              0.5180816054344177, 0.26825445890426636, 0.8076494336128235,
+              0.2953587472438812, 0.8904994130134583, 0.4243279695510864,
+              0.838723361492157, 0.6715388298034668, 0.7627037763595581,
+              0.41173744201660156, 0.8659765124320984],
+)
+# Cat3 of tests/test_pipeline.py: lines, sources, sources of comp=1
+GOLD_CAT3 = (14, 13, 2)
+# step 08 against the JAX package, as tests/test_torch_pipeline.py holds
+# it: flux and residual relative, a line within LINE_RTOL of its largest
+# magnitude
+FLUX_RTOL = RESIDUAL_RTOL = LINE_RTOL = 1e-4
+# Cat1 rows whose line estimation the field's cold run repeats on the CPU
+FIELD_CPU_ROWS = 16
 THRESH_TOL = 0.02
 COUNT_TOL = 1
 SWEEP_ATOL = SWEEP_RTOL = 1e-5
@@ -424,7 +454,9 @@ def phase_sweep_parity(precision, float32=None):
 
 # -- phases 4, 5 and d --------------------------------------------------------
 STEP_NAMES = ("step01", "step02", "step03", "step04", "step05", "step06",
-              "step07")
+              "step07", "step08", "step09")
+# phase d's bf16x3 runs stop at Cat1: steps 08-09 run no kernel
+FRONT_STEPS = STEP_NAMES[:7]
 
 
 def _run_steps(orig, step_kwargs, names=STEP_NAMES, sync=True):
@@ -497,7 +529,94 @@ def _summary(orig, gold):
             out["threshold"], out["threshold_std"], gold["threshold"],
             gold["threshold_std"], out["cat0"], gold["cat0"], out["cat1"],
             out["sources"], gold["cat1"]))
+    if orig.Cat3_sources is not None:
+        out.update(cat2=len(orig.Cat2), cat3=_cat3_counts(orig))
+        log("  Cat2 %d lines, Cat3 %d lines / %d sources / %d of comp=1"
+            % (out["cat2"], *out["cat3"]))
     return out
+
+
+def _cat3_counts(orig):
+    import numpy as np
+
+    comp = np.asarray(orig.Cat3_sources["comp"])
+    return (len(orig.Cat3_lines), len(orig.Cat3_sources),
+            int((comp == 1).sum()))
+
+
+def _rel_err(got, want, per_row=False):
+    """Largest |got - want| over |want| (over each row's largest |want|
+    with ``per_row``, for lines that pass through zero; absolute where
+    that is 0, as for a failed line's zeros)."""
+    import numpy as np
+
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    scale = (np.abs(want).max(axis=-1, keepdims=True) if per_row
+             else np.abs(want))
+    scale = np.where(scale > 0, scale, 1.0)
+    return float((np.abs(got - want) / scale).max()) if want.size else 0.0
+
+
+def _minicube_lines_checks(orig):
+    """Steps 08-09 of the minicube: Cat2 against the JAX package's, row
+    for row, and Cat3 against the goldens."""
+    import numpy as np
+
+    cat2 = orig.Cat2
+    check(len(cat2) == len(GOLD_CAT2["x"]),
+          f"minicube Cat2 has {len(cat2)} rows")
+    exact = all(np.array_equal(np.asarray(cat2[c], np.int64), GOLD_CAT2[c])
+                for c in ("x", "y", "z", "num_line"))
+    check(exact, "minicube Cat2 x, y, z and num_line equal the JAX "
+          "package's")
+    errs = {c: _rel_err(cat2[c], GOLD_CAT2[c]) for c in ("flux", "residual")}
+    check(errs["flux"] <= FLUX_RTOL and errs["residual"] <= RESIDUAL_RTOL,
+          f"minicube Cat2 flux within rtol {errs['flux']:.3g} <= "
+          f"{FLUX_RTOL:g}, residual within {errs['residual']:.3g} <= "
+          f"{RESIDUAL_RTOL:g} of the JAX package's")
+    counts = _cat3_counts(orig)
+    check(counts == GOLD_CAT3, f"minicube Cat3 {counts[0]} lines / "
+          f"{counts[1]} sources / {counts[2]} of comp=1 equal the goldens")
+    return dict(cat2_rel_err=errs, cat3=counts)
+
+
+def _field_lines_checks(orig):
+    """Step 08 of the field's first Cat1 rows on the card against the
+    port's own run on the CPU: x, y, z and ok equal, flux and lines at
+    the CPU tests' tolerance."""
+    import numpy as np
+    import torch
+
+    from origin_tpu_torch.ops.lines import estimation_line_arrays
+
+    cat1 = orig.Cat1[:FIELD_CPU_ROWS]
+    pos = [np.asarray(cat1[c], int) for c in ("x0", "y0", "z0")]
+    # step 08's parameters are the function's defaults
+    card = estimation_line_arrays(*pos, None, None, orig.PSF,
+                                  engine=orig.engine)
+    t0 = time.perf_counter()
+    cpu = estimation_line_arrays(*pos, orig.cube_raw, orig.var, orig.PSF,
+                                 device="cpu")
+    cpu_s = time.perf_counter() - t0
+    n = len(pos[0])
+    same = all(np.array_equal(card[k], cpu[k]) for k in ("x", "y", "z",
+                                                         "ok"))
+    check(same, f"field step 08 of {n} rows on the card: x, y, z and ok "
+          f"equal the CPU run's ({cpu_s:.1f} s, {torch.get_num_threads()} "
+          "threads)")
+    errs = dict(flux=_rel_err(card["flux"], cpu["flux"]),
+                line=_rel_err(card["line"], cpu["line"], per_row=True))
+    check(errs["flux"] <= FLUX_RTOL and errs["line"] <= LINE_RTOL,
+          f"field step 08 on the card: flux within rtol {errs['flux']:.3g} "
+          f"<= {FLUX_RTOL:g}, lines within {errs['line']:.3g} <= "
+          f"{LINE_RTOL:g} of their largest magnitude, of the CPU run's")
+    rows = [np.asarray(orig.Cat2[c])[:n] for c in ("x", "y", "z")]
+    ok = card["ok"]
+    check(all(np.array_equal(r[ok], card[c][ok])
+              for r, c in zip(rows, ("x", "y", "z"))),
+          "field Cat2's first rows hold the card's line positions")
+    return dict(rows=n, cpu_s=cpu_s, rel_err=errs,
+                ok=int(card["ok"].sum()))
 
 
 def _path_kernels(precision):
@@ -517,7 +636,7 @@ def _minicube_files():
     return cube_fn, seg_fn
 
 
-def phase_minicube(precision="highest"):
+def phase_minicube(precision="highest", names=STEP_NAMES):
     from origin_tpu_torch import native
     from origin_tpu_torch.pipeline.session import ORIGIN
     from tools_torch.synthetic import BRIGHT_LINES, FAINT_LINES
@@ -528,7 +647,7 @@ def phase_minicube(precision="highest"):
     reset_counts()
     orig = ORIGIN.init(cube_fn, name=f"minicube_{precision}", path=WORK,
                        loglevel="WARNING", device="cuda")
-    walls = _run_steps(orig, kwargs)
+    walls = _run_steps(orig, kwargs, names)
     counts = read_counts()
     log("  walls: " + " ".join(f"{k} {v:.2f}s" for k, v in walls.items()))
     log(f"  launches in this run: {counts}")
@@ -552,6 +671,8 @@ def phase_minicube(precision="highest"):
     lines = [(x, y, z) for x, y, z, _, _ in FAINT_LINES + BRIGHT_LINES]
     got, tot = _recovered(orig.Cat1, lines)
     check(got == tot, f"minicube: {got}/{tot} injected lines in Cat1")
+    if "step09" in names:
+        out["lines"] = _minicube_lines_checks(orig)
     _rerun_with_plain(orig, kwargs, precision)
     orig.close_logfile()
     out["walls"] = walls
@@ -579,9 +700,9 @@ def _field_checks(got, orig, lines):
     check(gb == nb, "field: every bright injected line in Cat1")
 
 
-def phase_field(field, precision="highest"):
-    """Steps 01-07 of the field, cold then warm; the counters are set to 0
-    just before the cold run and read just after it."""
+def phase_field(field, precision="highest", names=STEP_NAMES):
+    """Steps ``names`` of the field, cold then warm; the counters are set
+    to 0 just before the cold run and read just after it."""
     import torch
 
     from origin_tpu_torch.pipeline.session import ORIGIN
@@ -599,7 +720,7 @@ def phase_field(field, precision="highest"):
             reset_counts()
         orig = ORIGIN.init(cube, name=f"field_{precision}_{run}", path=WORK,
                            loglevel="WARNING", device="cuda")
-        walls = _run_steps(orig, kwargs)
+        walls = _run_steps(orig, kwargs, names)
         if first:
             counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -615,6 +736,8 @@ def phase_field(field, precision="highest"):
                 check(counts[name] > 0, f"the {precision} field run launched "
                       f"{name} ({counts[name]} launches)")
             _field_checks(out[run], orig, lines)
+            if "step08" in names:
+                out[run]["lines"] = _field_lines_checks(orig)
             _rerun_with_plain(orig, kwargs, precision)
         orig.close_logfile()
         del orig
@@ -853,9 +976,9 @@ def phase_bf16x3(field, highest):
     os.environ["ORIGIN_TPU_PRECISION"] = "bf16x3"
     try:
         log("  minicube:")
-        mini = phase_minicube("bf16x3")
+        mini = phase_minicube("bf16x3", FRONT_STEPS)
         log("  field:")
-        runs, counts = phase_field(field, "bf16x3")
+        runs, counts = phase_field(field, "bf16x3", FRONT_STEPS)
     finally:
         if prev is None:
             os.environ.pop("ORIGIN_TPU_PRECISION")
@@ -932,9 +1055,9 @@ def main():
     res["build"] = phase_build()
     log("[3] sweep kernel vs plain at %dx%dx%d" % FIELD)
     res["sweep"] = phase_sweep_parity("highest")
-    log("[4] minicube steps 01-07 on cuda")
+    log("[4] minicube steps 01-09 on cuda")
     res["minicube"] = phase_minicube()
-    log("[5] field %dx%dx%d steps 01-07 on cuda" % FIELD)
+    log("[5] field %dx%dx%d steps 01-09 on cuda" % FIELD)
     t0 = time.perf_counter()
     field = make_field(*FIELD, seed=7)
     log(f"  field {FIELD} generated in {time.perf_counter() - t0:.1f} s")

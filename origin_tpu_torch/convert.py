@@ -6,6 +6,10 @@ The JAX package's state, given as numpy (the Toeplitz banks with
 becomes the port's tensors: :func:`state_from_numpy` converts it and
 :meth:`origin_tpu_torch.pipeline.engine.TorchEngine.load_state` starts a
 session from it mid-pipeline.
+
+Steps 08-09 need nothing more: line estimation has no weights and reads
+the raw cube, its variance, the PSF and Cat1, which the session already
+holds, and step 09 works on the catalogs.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Cube / Image / Spectrum containers.
 
 (The port's copy of the part of ``origin_tpu/core/containers.py`` that steps
-01-07 use: float data with optional variance and mask, world coordinates, FITS
-reads and writes, and the reductions of a session's white image.)
+01-09 use: float data with optional variance and mask, world coordinates, FITS
+reads and writes, the reductions of a session's white image, and the
+trimmed per-line spectra of step 08.)
 
 Replaces the subset of ``mpdaf.obj.Cube/Image/Spectrum`` used by the reference
 (see reference steps.py:284-299): data + optional variance + optional boolean
@@ -240,3 +241,22 @@ class Spectrum(_Base):
     """(Nz,) spectrum."""
 
     _ndim = 1
+
+    def __getitem__(self, item):
+        data = self.data[item]
+        var = self.var[item] if self.var is not None else None
+        mask = self.mask[item] if self.mask is not None else None
+        if np.ndim(data) == 1:
+            wave = self.wave[item] if (
+                self.wave is not None and isinstance(item, slice)) else None
+            return Spectrum(data=data, var=var, mask=mask, wave=wave, copy=False)
+        return data
+
+    def subspec(self, lmin, lmax, unit=None):
+        """Trimmed spectrum over [lmin, lmax] (pixels when unit is None)."""
+        if unit is not None:
+            lmin = int(self.wave.pixel(lmin, nearest=True))
+            lmax = int(self.wave.pixel(lmax, nearest=True))
+        lmin = max(0, int(lmin))
+        lmax = min(self.shape[0] - 1, int(lmax))
+        return self[lmin : lmax + 1]

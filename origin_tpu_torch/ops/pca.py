@@ -20,6 +20,7 @@ from .stats import compute_thresh_gaussfit
 
 __all__ = [
     "rank1_left_vector",
+    "rank1_left_vectors",
     "greedy_pca",
     "compute_pca_threshold",
 ]
@@ -46,6 +47,24 @@ def rank1_left_vector(m, iters=200):
         u = m @ (m.T @ u)
         u = u / (torch.linalg.vector_norm(u) + eps)
     return u
+
+
+def rank1_left_vectors(m, iters=200):
+    """:func:`rank1_left_vector` of each (nz, np) matrix of a (B, nz, np)
+    batch, as the JAX package's ``vmap`` of it computes them: the same
+    start column (first of largest norm), the same ``+ 1e-30`` and the
+    whole ``iters`` budget, with batched matrix products.  Returns (B, nz).
+    """
+    eps = 1e-30
+    colnorm = torch.sum(m * m, dim=1)
+    start = torch.argmax(colnorm, dim=1)
+    u = torch.take_along_dim(m, start[:, None, None], dim=2)
+    u = u / (torch.linalg.vector_norm(u, dim=1, keepdim=True) + eps)
+    mt = m.transpose(1, 2)
+    for _ in range(iters):
+        u = torch.bmm(m, torch.bmm(mt, u))
+        u = u / (torch.linalg.vector_norm(u, dim=1, keepdim=True) + eps)
+    return u[:, :, 0]
 
 
 def greedy_pca(cube, valid, test0, thres, noise_population=50.0, itermax=100,

@@ -3,9 +3,11 @@
 Torch port of the main-path subset of
 :class:`origin_tpu.pipeline.engine.DeviceEngine`: steps 01 (DCT +
 standardization + local extrema), 04 (greedy PCA per area), 05 (GLR
-matched filter) and 07 (detection extraction) keep every cube-sized
+matched filter), 07 (detection extraction), 08 (the detections'
+minicubes) and 09 (cube standard deviations) keep every cube-sized
 intermediate on the session's device, and only 2-D images, per-area
-vectors, (50,)-vectors and sparse detection lists come back to the host.
+vectors, (50,)-vectors, sparse detection lists and per-line results come
+back to the host.
 
 The JAX engine's transfer machinery (streamed ingest, int16 and
 bit-packed wires, speculative and bucketed compaction, host rebuilds)
@@ -30,6 +32,7 @@ from ..ops.glr import (
     precompute_spatial,
     prepare_profiles,
 )
+from ..ops.lines import gather_windows
 from ..ops.localmax import compute_local_max
 from ..ops.pca import greedy_pca
 from ..ops.spatial import spatial_fsf, spatial_kernel_admits
@@ -322,3 +325,27 @@ class TorchEngine:
         extras = [self.get(g)[z, y, x] for g in gather]
         zyx = tuple(_host(a) for a in (z, y, x))
         return zyx, _host(vals), [_host(e) for e in extras]
+
+    # -- step 08 -----------------------------------------------------------
+    def minicubes(self, xs, ys, sg, wmaps=None):
+        """(B, Nz, sg, sg) detection minicubes gathered on device.
+
+        One index gather from the resident zero-filled cube and
+        inf-filled variance (:func:`gather_windows`), out-of-field cells
+        filled with data 0 and variance inf, at any field size; with the
+        (F, Ny, Nx) device tensor ``wmaps``, also the (B, F, sg, sg)
+        weight windows, filled with 0.  Returns the tuple of windows.
+        """
+        ys = torch.as_tensor(ys, dtype=torch.int64, device=self.device)
+        xs = torch.as_tensor(xs, dtype=torch.int64, device=self.device)
+        out = (gather_windows(self.input_cube(), ys, xs, sg, 0.0),
+               gather_windows(self.input_var(), ys, xs, sg, float("inf")))
+        if wmaps is not None:
+            out += (gather_windows(wmaps, ys, xs, sg, 0.0),)
+        return out
+
+    # -- step 09 -----------------------------------------------------------
+    def std_scalar(self, name):
+        """Population standard deviation of a cube product (``jnp.std``;
+        torch's default ``correction=1`` would be the sample one)."""
+        return float(torch.std(self.get(name), correction=0))

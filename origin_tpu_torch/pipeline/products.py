@@ -1,6 +1,6 @@
 """Named step products, live in memory.
 
-The part of :mod:`origin_tpu.pipeline.products` that steps 01-07 use: a
+The part of :mod:`origin_tpu.pipeline.products` that steps 01-09 use: a
 per-step name -> value store and the catalog print formats.  Parking
 products in a session directory comes with session I/O (see ROADMAP.md).
 Cube-sized products stay on the session's device as :class:`TensorCube`.

@@ -1,8 +1,8 @@
-"""The ORIGIN session for the torch port: steps 01-07 on an explicit device.
+"""The ORIGIN session for the torch port: steps 01-09 on an explicit device.
 
 Port of the step wiring of :mod:`origin_tpu.pipeline.session`
-(``ORIGIN.init`` and ``step01_preprocessing`` .. ``step07_detection``).
-Session write/load and steps 08-11 are not ported yet and raise
+(``ORIGIN.init`` and ``step01_preprocessing`` .. ``step09_clean_results``).
+Session write/load and steps 10-11 are not ported yet and raise
 :class:`NotImplementedError` naming their ROADMAP.md item.
 """
 
@@ -32,10 +32,8 @@ LOGGER_NAME = "origin_tpu_torch"
 
 #: ROADMAP.md section 1 items that port what is not here yet
 _LATER = {
-    "step08_compute_spectra": "Step 08: line estimation",
-    "step09_clean_results": "Steps 09-11: cleaning, masks and sources",
-    "step10_create_masks": "Steps 09-11: cleaning, masks and sources",
-    "step11_save_sources": "Steps 09-11: cleaning, masks and sources",
+    "step10_create_masks": "Steps 10-11: masks and sources",
+    "step11_save_sources": "Steps 10-11: masks and sources",
     "write": "Session I/O",
     "load": "Session I/O",
 }
@@ -69,8 +67,8 @@ class ORIGIN:
     """ORIGIN session: blind emission-line detection on one datacube.
 
     Composed of the raw cube + variance, a dictionary of spectral profiles
-    and the FSF model; drives steps 01-07 (``step01_preprocessing`` ..
-    ``step07_detection``) on ``device`` (``"cuda"``, or ``"cpu"`` when
+    and the FSF model; drives steps 01-09 (``step01_preprocessing`` ..
+    ``step09_clean_results``) on ``device`` (``"cuda"``, or ``"cpu"`` when
     asked for).
     """
 
@@ -198,12 +196,6 @@ class ORIGIN:
     def write(self, path=None, erase=False, compat=None):
         raise _not_ported("write")
 
-    def step08_compute_spectra(self, *args, **kwargs):
-        raise _not_ported("step08_compute_spectra")
-
-    def step09_clean_results(self, *args, **kwargs):
-        raise _not_ported("step09_clean_results")
-
     def step10_create_masks(self, *args, **kwargs):
         raise _not_ported("step10_create_masks")
 
@@ -259,6 +251,12 @@ class ORIGIN:
         self.logger.info("Load dictionary of spectral profile %s", path)
         profiles, _ = load_dictionary(path)
         return profiles
+
+    @cached_property
+    def FWHM_profiles(self):
+        """FWHM of the spectral profiles, in pixels."""
+        _, fwhms = load_dictionary(self.param["profiles"])
+        return fwhms
 
     # -- FSF -------------------------------------------------------------------
     def _read_fsf(self, cube, fieldmap=None, wfields=None, PSF=None,

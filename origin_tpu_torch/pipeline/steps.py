@@ -1,8 +1,8 @@
-"""Steps 01-07 of the pipeline and the stage protocol that drives them.
+"""Steps 01-09 of the pipeline and the stage protocol that drives them.
 
-Port of the front-end steps of :mod:`origin_tpu.pipeline.steps`: the same
+Port of steps 01-09 of :mod:`origin_tpu.pipeline.steps`: the same
 parameters, products and host logic, with the cube-sized math on the
-session's torch device (:class:`.engine.TorchEngine`).  Steps 08-11 are
+session's torch device (:class:`.engine.TorchEngine`).  Steps 10-11 are
 not ported yet (see ROADMAP.md).
 """
 
@@ -11,15 +11,17 @@ from __future__ import annotations
 import inspect
 import logging
 import time
+from collections import OrderedDict
 from datetime import datetime
 from enum import Enum, auto
 
 import numpy as np
 from scipy import ndimage as ndi
 
-from ..core.containers import Image
+from ..core.containers import Image, Spectrum
 from ..core.table import Table, vstack
 from ..detect import (
+    add_tglr_stat,
     area_growing,
     area_segmentation_convex_fusion,
     area_segmentation_final,
@@ -28,9 +30,12 @@ from ..detect import (
     compute_segmap_gauss,
     deblend_sources,
     filter_duplicate_lines,
+    merge_similar_lines,
     purity_estimation,
     spatiospectral_merging,
+    unique_sources,
 )
+from ..ops.lines import estimation_line_arrays
 from ..ops.purity import compute_threshold_purity_pair
 from ..ops.stats import compute_thresh_gaussfit, o2test
 from .products import ProductStore, TensorCube, format_catalog
@@ -43,6 +48,8 @@ __all__ = [
     "ComputeTGLR",
     "ComputePurityThreshold",
     "Detection",
+    "ComputeSpectra",
+    "CleanResults",
     "Status",
     "Step",
     "STEPS",
@@ -553,6 +560,114 @@ class Detection(Step):
         )
 
 
+class ComputeSpectra(Step):
+    """Refined line positions, fluxes and deconvolved spectra.
+
+    Parameters: grid_dxy (spatial search radius), spectrum_size_fwhm
+    (spectrum trim length in line-FWHM units).
+    """
+
+    name = "compute_spectra"
+    desc = "Lines estimation"
+    products = dict(Cat2="table", spectra="spectra")
+    depends_on = ("detection",)
+
+    def run(self, orig, grid_dxy=0, spectrum_size_fwhm=6):
+        cat1 = orig.Cat1
+        out = estimation_line_arrays(
+            np.asarray(cat1["x0"], int),
+            np.asarray(cat1["y0"], int),
+            np.asarray(cat1["z0"], int),
+            # the engine gathers the windows from its resident inputs
+            None, None, orig.PSF, weights=orig.wfields,
+            size_grid=grid_dxy, criteria="flux", order_dct=30, horiz_psf=1,
+            horiz=5, engine=orig.engine,
+        )
+        cat2 = cat1.copy()
+        # a line whose estimation failed (all-masked minicube near a cube
+        # mask, out-of-bounds refinement) keeps its raw detection position
+        # instead of propagating NaN into the catalogs and mask windows
+        ok = (np.asarray(out["ok"], bool)
+              & np.isfinite(np.asarray(out["x"], float))
+              & np.isfinite(np.asarray(out["y"], float)))
+        if (~ok).any():
+            self.logger.warning(
+                "%d line estimation(s) failed; keeping detection "
+                "positions (flux = NaN)", int((~ok).sum()),
+            )
+        out["ok"] = ok
+        xr = np.where(ok, out["x"], np.asarray(cat1["x0"], float))
+        yr = np.where(ok, out["y"], np.asarray(cat1["y0"], float))
+        zr = np.where(ok, out["z"], np.asarray(cat1["z0"]))
+        sky = orig.wcs.pix2sky(
+            np.stack((yr.astype(float), xr.astype(float)), axis=1)
+        )
+        cat2["ra"] = sky[:, 1]
+        cat2["dec"] = sky[:, 0]
+        cat2["lbda"] = orig.wave.coord(zr)
+        cat2.add_columns(
+            [xr, yr, zr, out["residual"], out["flux"],
+             np.arange(1, len(cat2) + 1)],
+            names=["x", "y", "z", "residual", "flux", "num_line"],
+            indexes=[4, 5, 6, 8, 8, 8],
+        )
+        format_catalog(cat2)
+        self.put("Cat2", cat2)
+        self.logger.info("Cat2 ready (%d refined lines)", len(cat2))
+
+        radius = np.ceil(
+            np.asarray(orig.FWHM_profiles) * spectrum_size_fwhm / 2
+        ).astype(int)
+        spectra = OrderedDict()
+        for i in range(len(cat2)):
+            if not out["ok"][i]:
+                continue
+            prof = int(np.asarray(cat2["profile"])[i])
+            zline = int(out["z"][i])
+            num = int(np.asarray(cat2["num_line"])[i])
+            sp = Spectrum(
+                data=out["line"][i], var=out["line_var"][i], wave=orig.wave,
+            )
+            spectra[num] = sp.subspec(
+                zline - radius[prof], zline + radius[prof]
+            )
+        self.put("spectra", spectra)
+        self.logger.info("per-line deconvolved spectra ready (%d)",
+                         len(spectra))
+
+
+class CleanResults(Step):
+    """Merge near-duplicate lines, build the unique-source table and attach
+    detection statistics.
+
+    Parameter: merge_lines_z_threshold.
+    """
+
+    name = "clean_results"
+    desc = "Results cleaning"
+    products = dict(Cat3_lines="table", Cat3_sources="table")
+    depends_on = ("compute_spectra",)
+
+    def run(self, orig, merge_lines_z_threshold=5):
+        lines = merge_similar_lines(
+            orig.Cat2, z_pix_threshold=merge_lines_z_threshold
+        )
+        self.put("Cat3_lines", lines)
+        sources = add_tglr_stat(
+            unique_sources(lines), lines,
+            orig.engine.std_scalar("cube_correl"),
+            orig.engine.std_scalar("cube_std"),
+        )
+        self.put("Cat3_sources", sources)
+        self.logger.info(
+            "Cat3_sources / Cat3_lines ready (%d sources, %d lines)",
+            len(sources), len(lines),
+        )
+        nmerged = int(np.sum(np.asarray(lines["merged_in"]) != -9999))
+        if nmerged:
+            self.logger.info("%d lines were merged into nearby lines", nmerged)
+
+
 STEPS = [
     Preprocessing,
     CreateAreas,
@@ -561,4 +676,6 @@ STEPS = [
     ComputeTGLR,
     ComputePurityThreshold,
     Detection,
+    ComputeSpectra,
+    CleanResults,
 ]

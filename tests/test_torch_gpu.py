@@ -26,11 +26,12 @@ import numpy as np
 import pytest
 import torch
 
+import lines_cases
 from origin_tpu_torch.core import MoffatFSF
 from origin_tpu_torch.core.profiles import (
     DICO_3FWHM, DICO_FWHM_2_12, default_dictionary_path, load_dictionary,
 )
-from origin_tpu_torch.ops import glr, kernels, spatial
+from origin_tpu_torch.ops import glr, kernels, lines, spatial
 from origin_tpu_torch.ops.convolve import fft2_shape
 from origin_tpu_torch.ops.prec import split_bf16
 from origin_tpu_torch.ops.spatial import spatial_fsf
@@ -385,3 +386,63 @@ def test_cuda_wrapper_checks_its_inputs(cuda):
     with pytest.raises(ValueError):
         spectral_sweep(x.transpose(1, 2), n.transpose(1, 2), t_num, t_den,
                        pad_left, 64)
+
+
+# -- step 08: line estimation (stock torch ops) on the card against the CPU --
+# The same functions on both devices; float32 sums in another order, so the
+# values are held at rtol 1e-4 (per-channel arrays with an atol of 1e-4
+# times their largest magnitude) and positions and ok exactly.
+@pytest.mark.gpu
+@pytest.mark.parametrize("sg", [5, 25])
+def test_cuda_gather_windows_matches_cpu(cuda, sg):
+    raw, var, _, _ = lines_cases.field()
+    ys, xs = torch.tensor([0, 10, 20, 3]), torch.tensor([0, 10, 20, 17])
+    for arr, fill in ((raw, 0.0), (var, float("inf"))):
+        arr = torch.from_numpy(arr)
+        want = lines.gather_windows(arr, ys, xs, sg, fill)
+        got = lines.gather_windows(arr.to(cuda), ys.to(cuda), xs.to(cuda),
+                                   sg, fill)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_cuda_method_pca_wgt_matches_cpu(cuda):
+    from origin_tpu_torch.ops.dct import dctmat
+
+    cubes = [lines_cases.line_minicube(seed=s, z0=z) for s, z in
+             ((43, 30), (7, 12), (8, 47))]
+    args = [torch.from_numpy(np.stack([c[i] for c in cubes]))
+            for i in (0, 1)]
+    args += [torch.from_numpy(cubes[0][2]), torch.from_numpy(dctmat(60, 30))]
+    want = lines.method_pca_wgt(*args)
+    got = lines.method_pca_wgt(*(a.to(cuda) for a in args))
+    for g, w in zip(got, want):
+        w = w.numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("criteria", ["flux", "mse"])
+@pytest.mark.parametrize("mosaic", [False, True], ids=["field", "mosaic"])
+@pytest.mark.parametrize("g", [0, 1])
+@pytest.mark.parametrize("which", ["field", "small_field"])
+def test_cuda_grid_analysis_matches_cpu(cuda, which, g, mosaic, criteria):
+    fld = getattr(lines_cases, which)()
+    _, ny, nx = fld[0].shape
+    kw = dict(size_grid=g, criteria=criteria)
+    want = lines.grid_analysis_batch(
+        *lines_cases.grid_inputs(fld, mosaic, g, "cpu"), ny, nx, **kw)
+    got = lines.grid_analysis_batch(
+        *lines_cases.grid_inputs(fld, mosaic, g, cuda), ny, nx, **kw)
+    lines_cases.hold({k: v.cpu().numpy() for k, v in got.items()},
+                     {k: v.numpy() for k, v in want.items()}, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mosaic", [False, True], ids=["field", "mosaic"])
+def test_cuda_estimation_line_arrays_matches_cpu(cuda, mosaic):
+    *args, kw = lines_cases.chunk_case(mosaic)
+    lines_cases.hold(lines.estimation_line_arrays(*args, device=cuda, **kw),
+                     lines.estimation_line_arrays(*args, device="cpu", **kw),
+                     rtol=1e-4)

@@ -53,8 +53,14 @@ def test_port_runs_without_jax_or_yaml(tmp_path):
             orig.step06_compute_purity_threshold(purity=0.8)
             orig.step07_detection(segmap=seg)
             counts[prec] = (len(orig.Cat0), len(orig.Cat1))
+            if prec == "highest":
+                orig.step08_compute_spectra()
+                orig.step09_clean_results()
+                counts["cat3"] = (len(orig.Cat3_lines),
+                                  len(orig.Cat3_sources))
             orig.close_logfile()
-        assert counts == {{"highest": (15, 14), "bf16x3": (15, 14)}}, counts
+        assert counts == {{"highest": (15, 14), "bf16x3": (15, 14),
+                           "cat3": (14, 13)}}, counts
         if not torch.cuda.is_available():
             try:
                 session.ORIGIN.init(path, device="cuda",
@@ -84,7 +90,7 @@ def test_unported_entry_points_name_the_roadmap(tmp_path):
     make_minicube(path, nz=40, ny=10, nx=12)
     orig = ORIGIN.init(path, device="cpu", path=str(tmp_path), name="t",
                        loglevel="WARNING")
-    for call in (orig.write, orig.step08_compute_spectra,
+    for call in (orig.write, orig.step10_create_masks,
                  orig.step11_save_sources, lambda: ORIGIN.load("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -92,7 +98,8 @@ def test_unported_entry_points_name_the_roadmap(tmp_path):
         "step01_preprocessing", "step02_areas",
         "step03_compute_PCA_threshold", "step04_compute_greedy_PCA",
         "step05_compute_TGLR", "step06_compute_purity_threshold",
-        "step07_detection",
+        "step07_detection", "step08_compute_spectra",
+        "step09_clean_results",
     ]
     orig.close_logfile()
 

@@ -1,8 +1,10 @@
-"""The slice: steps 01-07 of the torch port against the JAX package.
+"""The slice: steps 01-09 of the torch port against the JAX package.
 
 Both packages run the synthetic minicube (tests/make_minicube.py) through
-steps 01-07 on the CPU with the golden parameters of tests/test_pipeline.py
-(areas 30/60, purity 0.8, the test segmap).
+steps 01-09 on the CPU with the golden parameters of tests/test_pipeline.py
+(areas 30/60, purity 0.8, the test segmap); the JAX package with
+``ORIGIN_TPU_CORREL_WIRE=f32``, so that its step 09 reduces the float32
+cube_correl and not the int16 wire of its host copy.
 
 - Steps 01-03 agree to float32 summation order: cube_std at atol 1e-4
   (values up to ~25; the batched GLS sums in another order) and so its
@@ -21,6 +23,19 @@ steps 01-07 on the CPU with the golden parameters of tests/test_pipeline.py
   threshold.  So the torch slice is held row for row to the JAX package
   run with the same budget (tests/jax_full_budget.py): mapO2 exact and
   cube_faint at atol 1e-4, thresholds within 1e-3, Cat1 as above.
+- Steps 08-09 of the torch slice against the JAX package run with the
+  whole budget, in step 04 and in step 08's two rank-1 PCAs per line:
+  Cat2 row for row (x, y, z, num_line exact; flux and residual at rtol
+  1e-4), the spectra with the same keys and lengths and values within
+  1e-4 of each spectrum's largest magnitude, Cat3 lines and sources (ID,
+  merged_in, n_lines, comp, waves equal; nsigTGLR and nsigSTD at rtol
+  1e-5), and the goldens' Cat3 14 lines / 13 sources / 2 of comp=1.  The
+  readings are 4.1e-6 (flux), 6.1e-7 (residual), 2.6e-6 (spectra) and
+  4.9e-6 (nsig*).
+- Against the JAX package run as it is (its power iteration stopped
+  early), Cat1 already differs (step 04): its Cat2 has the same Cat3
+  counts (14 / 13 / 2), but only 5 of 14 rows share x, y and z with the
+  port's.
 """
 
 import numpy as np
@@ -52,6 +67,12 @@ def _back_steps(orig, seg_fn):
     orig.step07_detection(segmap=seg_fn)
 
 
+def _lines_steps(orig):
+    orig.step08_compute_spectra()
+    orig.step09_clean_results()
+    return orig
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     path = tmp_path_factory.mktemp("slice")
@@ -59,12 +80,15 @@ def runs(tmp_path_factory):
     make_minicube(cube_fn)
     make_segmap(seg_fn)
     kw = dict(path=str(path), loglevel="WARNING")
-    jax_run = _front_steps(JaxORIGIN.init(cube_fn, name="jax", **kw), seg_fn)
-    with jax_full_budget():
-        jax_full = _front_steps(JaxORIGIN.init(cube_fn, name="jax_full", **kw),
-                                seg_fn)
-    torch_run = _front_steps(
-        ORIGIN.init(cube_fn, name="torch", device="cpu", **kw), seg_fn)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ORIGIN_TPU_CORREL_WIRE", "f32")
+        jax_run = _lines_steps(_front_steps(
+            JaxORIGIN.init(cube_fn, name="jax", **kw), seg_fn))
+        with jax_full_budget():
+            jax_full = _lines_steps(_front_steps(
+                JaxORIGIN.init(cube_fn, name="jax_full", **kw), seg_fn))
+    torch_run = _lines_steps(_front_steps(
+        ORIGIN.init(cube_fn, name="torch", device="cpu", **kw), seg_fn))
     fed = _front_steps(ORIGIN.init(cube_fn, name="fed", device="cpu", **kw),
                        seg_fn, upto=3)
     fed.engine.load_state({"cube_faint": np.asarray(jax_run.cube_faint.data)})
@@ -150,3 +174,46 @@ def test_full_torch_slice(runs):
         near = ((np.abs(x0 - x) <= 2) & (np.abs(y0 - y) <= 2)
                 & (np.abs(z0 - z) <= 4))
         assert near.any(), f"injected line at ({x},{y},{z}) not recovered"
+
+
+def _assert_same_table(a, b, exact, close, rtol):
+    assert a.colnames == b.colnames
+    for col in exact:
+        np.testing.assert_array_equal(np.asarray(a[col]), np.asarray(b[col]),
+                                      err_msg=col)
+    for col in close:
+        np.testing.assert_allclose(np.asarray(a[col], float),
+                                   np.asarray(b[col], float), rtol=rtol,
+                                   err_msg=col)
+
+
+def test_step08_cat2_matches_jax_full_budget(runs):
+    _, t, _, jf = runs
+    assert len(t.Cat2) == len(jf.Cat2) == 14
+    _assert_same_table(t.Cat2, jf.Cat2, ("x", "y", "z", "num_line"),
+                       ("flux", "residual"), rtol=1e-4)
+
+
+def test_step08_spectra_match_jax_full_budget(runs):
+    _, t, _, jf = runs
+    assert list(t.spectra) == list(jf.spectra)
+    for num, sp in t.spectra.items():
+        ref = jf.spectra[num]
+        assert sp.shape == ref.shape
+        want = np.asarray(ref.data, float)
+        np.testing.assert_allclose(sp.data, want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+        np.testing.assert_allclose(sp.wave.coord(), ref.wave.coord())
+
+
+def test_step09_cat3_matches_jax_full_budget_and_goldens(runs):
+    j, t, _, jf = runs
+    _assert_same_table(t.Cat3_lines, jf.Cat3_lines, ("ID", "merged_in"),
+                       ("nsigTGLR", "nsigSTD"), rtol=1e-5)
+    _assert_same_table(t.Cat3_sources, jf.Cat3_sources,
+                       ("ID", "n_lines", "comp", "waves"),
+                       ("nsigTGLR", "nsigSTD"), rtol=1e-5)
+    for o in (t, jf, j):
+        comp = np.asarray(o.Cat3_sources["comp"])
+        assert (len(o.Cat3_lines), len(o.Cat3_sources),
+                int(np.sum(comp == 1))) == (14, 13, 2)

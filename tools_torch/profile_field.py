@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Per-step device profile of origin_tpu_torch's steps 01-07 on one GPU.
+"""Per-step device profile of origin_tpu_torch's steps 01-09 on one GPU.
 
-Runs steps 01-07 on the synthetic 3681x100x200 field (tools_torch/synthetic.py)
+Runs steps 01-09 on the synthetic 3681x100x200 field (tools_torch/synthetic.py)
 (seed 7, default parameters, purity 0.8) twice: once cold, once warm under
 ``torch.profiler``.  For each step of the warm run it prints the host wall
 (with the device drained at both ends), the device-busy time (the union of
