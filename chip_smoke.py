@@ -13,15 +13,27 @@ Phases, each fatal on failure:
 3. hold the GLR sweep kernel against its plain torch version on the card
    at 3681 x 100 x 200 for the 3- and 20-profile dictionaries, time both
    with CUDA events, and print the kernel's share of its bound;
-4. steps 01-09 on the synthetic minicube (tools_torch/synthetic.py) with
+4. steps 01-11 on the synthetic minicube (tools_torch/synthetic.py) with
    ``device="cuda"``: Cat2 row for row against the JAX package's
    (``GOLD_CAT2``, from tools_torch/minicube_cat2.py), Cat3 against the
-   goldens (14 lines, 13 sources, 2 of comp=1);
-5. steps 01-09 on the synthetic 3681 x 100 x 200 field
+   goldens (14 lines, 13 sources, 2 of comp=1), and the 13 source files
+   against the JAX package's (``GOLD_SOURCES``, same tool): each source's
+   mask triple (edge, object pixels, sky pixels) exactly, each file's
+   REFSPEC and number of extensions, the L2 norms of its MUSE_TOT and
+   REFSPEC spectra at rtol 1e-4;
+5. steps 01-11 on the synthetic 3681 x 100 x 200 field
    (tools_torch/synthetic.make_field, seed 7), twice (cold, then warm),
-   with per-step walls and peak device memory; the sweep's launch counter
-   must move; on the cold run, step 08's line estimation of the first 16
-   Cat1 rows on the card against the port's own on the CPU;
+   with per-step walls, the peak device memory through step 09 and
+   through step 11 (within 2% of each other), and the number and bytes of
+   the source files; the sweep's launch counter must move; on the cold
+   run, step 08's line estimation of the first 16 Cat1 rows on the card
+   against the port's own on the CPU, every line max image of steps 10-11
+   bit for bit against ``ops.cutouts.line_max_images`` on the CPU from the
+   host copy of its detection cube, the spectra of the first 8 sources
+   against ``ops.spectra.source_spectra`` on the CPU (within 1e-5 of each
+   spectrum's largest magnitude), and the detection-cube cutout of the
+   first 4 source files exactly against the host cube's ``subcube``.  The
+   masks/ and sources/ folders (~1.5 GB) are deleted after each run;
 a. the spatial FSF kernel against its plain version at 3681 x 100 x 200,
    at ``highest`` and in bf16x3, with two weighted fields on a 256-channel
    cut, and on a 300 x 300 x 256 cut; CUDA-event times of the kernel, the
@@ -46,7 +58,7 @@ d. steps 01-07 of the minicube and of the field with
    within 0.005.
 
 In phases 4, 5 and d, steps 05-07 are then re-run with the plain versions
-in place of the kernels (after the step 08-09 checks: the re-run replaces
+in place of the kernels (after the step 08-11 checks: the re-run replaces
 the Cat1 under Cat2), and the two catalogs must agree row for row.  The
 std threshold, which step 04 does not touch, is held within 0.02 of the
 JAX package's.  What step 04 decides is held to a reference that runs the
@@ -71,6 +83,7 @@ Usage: python3 chip_smoke.py
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -109,6 +122,48 @@ GOLD_CAT2 = dict(
 )
 # Cat3 of tests/test_pipeline.py: lines, sources, sources of comp=1
 GOLD_CAT3 = (14, 13, 2)
+# the minicube's source files from the JAX package on the CPU, run as for
+# GOLD_CAT2 and with ORIGIN_TPU_CORREL_WIRE=f32 (tools_torch/minicube_cat2.py):
+# per source ID, (mask edge, object pixels, sky pixels, REFSPEC, number of
+# extensions, L2 norm of MUSE_TOT, L2 norm of the REFSPEC spectrum)
+GOLD_SOURCES = {
+    1: (25, 159, 430, "ORI_CORR_2_SKYSUB", 41, 4673.774634964793,
+        67.45812815653524),
+    2: (25, 54, 507, "ORI_CORR_3_SKYSUB", 33, 180.1102294329428,
+        5.503397964338199),
+    3: (25, 101, 503, "ORI_CORR_4_SKYSUB", 33, 5025.122177528683,
+        136.29694658928182),
+    4: (25, 111, 241, "ORI_CORR_5_SKYSUB", 33, 292.0688697907626,
+        7.150739965915426),
+    5: (25, 68, 251, "ORI_CORR_6_SKYSUB", 33, 155.2867723672633,
+        5.449331539623059),
+    6: (25, 97, 514, "ORI_CORR_7_SKYSUB", 33, 242.34013634852593,
+        6.753069961149289),
+    7: (25, 77, 324, "ORI_CORR_8_SKYSUB", 33, 205.17086727920278,
+        4.722332019682865),
+    8: (25, 76, 522, "ORI_CORR_9_SKYSUB", 33, 205.04289744291552,
+        6.049680403839657),
+    9: (25, 56, 289, "ORI_CORR_10_SKYSUB", 33, 142.63130621577298,
+        6.5780410710374335),
+    10: (25, 51, 486, "ORI_CORR_11_SKYSUB", 33, 170.85150513054575,
+         6.286801972503644),
+    11: (25, 70, 329, "ORI_CORR_12_SKYSUB", 33, 197.32800408933693,
+         4.969663515178269),
+    12: (25, 57, 448, "ORI_CORR_13_SKYSUB", 33, 4560.76781967836,
+         244.44002771149906),
+    13: (25, 49, 296, "ORI_CORR_14_SKYSUB", 33, 116.76926421107858,
+         14.040351244935374),
+}
+SOURCE_NORM_RTOL = 1e-4
+# step 11's spectra on the card against the CPU: float32 sums in another
+# order, held as tests/test_torch_gpu.py holds them
+SPECTRA_REL = 1e-5
+# sources whose spectra, and files whose detection-cube cutout, the field's
+# cold run repeats on the CPU
+FIELD_CPU_SOURCES = 8
+FIELD_CUTOUT_FILES = 4
+# steps 10-11 may not raise the field's peak device memory by more than this
+PEAK_GROWTH = 1.02
 # step 08 against the JAX package, as tests/test_torch_pipeline.py holds
 # it: flux and residual relative, a line within LINE_RTOL of its largest
 # magnitude
@@ -454,12 +509,19 @@ def phase_sweep_parity(precision, float32=None):
 
 # -- phases 4, 5 and d --------------------------------------------------------
 STEP_NAMES = ("step01", "step02", "step03", "step04", "step05", "step06",
-              "step07", "step08", "step09")
-# phase d's bf16x3 runs stop at Cat1: steps 08-09 run no kernel
+              "step07", "step08", "step09", "step10", "step11")
+# phase d's bf16x3 runs stop at Cat1: steps 08-11 run no kernel
 FRONT_STEPS = STEP_NAMES[:7]
+# the field's step parameters (defaults otherwise); the minicube adds its
+# areas and segmap
+STEP_KWARGS = dict(step06=dict(purity=0.8), step11=dict(version="0.1"))
 
 
-def _run_steps(orig, step_kwargs, names=STEP_NAMES, sync=True):
+def _run_steps(orig, step_kwargs, names=STEP_NAMES, sync=True, peaks=None):
+    """Run the steps ``names``; returns their walls (device drained at both
+    ends) and, into ``peaks``, the peak device memory after each."""
+    import torch
+
     walls = {}
     for name in names:
         method = next(getattr(orig, m) for m in dir(orig)
@@ -469,6 +531,8 @@ def _run_steps(orig, step_kwargs, names=STEP_NAMES, sync=True):
             walls[name] = sync_wall(call)
         else:
             call()
+        if peaks is not None:
+            peaks[name] = torch.cuda.max_memory_allocated()
     return walls
 
 
@@ -619,6 +683,167 @@ def _field_lines_checks(orig):
                 ok=int(card["ok"].sum()))
 
 
+def _minicube_source_checks(orig):
+    """Steps 10-11 of the minicube against the JAX package's files
+    (``GOLD_SOURCES``): the mask triples, REFSPEC and extension counts
+    exactly, the two spectra's L2 norms at rtol SOURCE_NORM_RTOL."""
+    import numpy as np
+
+    from origin_tpu_torch import fitsio
+    from origin_tpu_torch.artifacts import Source
+    from origin_tpu_torch.core import Image
+
+    folder = os.path.join(orig.outpath, "sources")
+    names = sorted(os.listdir(folder))
+    check(names == ["source-%05d.fits" % i for i in sorted(GOLD_SOURCES)],
+          f"minicube: {len(names)} source files, the JAX package's")
+    triples, heads, worst = [], [], 0.0
+    for sid, gold in GOLD_SOURCES.items():
+        obj, sky = (Image(os.path.join(orig.outpath, "masks",
+                                       f"{kind}-mask-%05d.fits" % sid)).data
+                    for kind in ("source", "sky"))
+        triples.append((obj.shape[0], int(obj.sum()), int((sky == 1).sum()))
+                       == gold[:3])
+        fn = os.path.join(folder, "source-%05d.fits" % sid)
+        src = Source.from_file(fn)
+        ref = src.header["REFSPEC"]
+        heads.append((ref, len(fitsio.read(fn)) - 1) == gold[3:5])
+        for tag, want in (("MUSE_TOT", gold[5]), (ref, gold[6])):
+            got = float(np.linalg.norm(src.spectra[tag].data))
+            worst = max(worst, abs(got - want) / want)
+    check(all(triples), "minicube: every source's mask edge, object and sky "
+          "pixel counts equal the JAX package's")
+    check(all(heads), "minicube: every file's REFSPEC and number of "
+          "extensions equal the JAX package's")
+    check(worst <= SOURCE_NORM_RTOL, f"minicube: MUSE_TOT and REFSPEC L2 "
+          f"norms within rtol {worst:.3g} <= {SOURCE_NORM_RTOL:g} of the JAX "
+          "package's")
+    return dict(files=len(names), norm_rel_err=worst)
+
+
+class _Recorder:
+    """Swaps a module function for a wrapper that keeps each call's
+    arguments and result (read after the run, nothing copied during it)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def wrapped(*args):
+            out = self.fn(*args)
+            self.calls.append((args, out))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def _source_files(orig):
+    """(mask files, source files, their bytes) of a session's steps 10-11
+    (FITS files only: a problematic_masks.txt is not counted)."""
+    counts, nbytes = [], 0
+    for sub in ("masks", "sources"):
+        folder = os.path.join(orig.outpath, sub)
+        names = [n for n in os.listdir(folder) if n.endswith(".fits")]
+        counts.append(len(names))
+        nbytes += sum(os.path.getsize(os.path.join(folder, n))
+                      for n in names)
+    return counts[0], counts[1], nbytes
+
+
+def _rows_rel_err(got, want):
+    """Largest |got - want| over each row's largest finite |want|; inf when
+    NaN falls in other places."""
+    import numpy as np
+
+    got = np.asarray(got, float).reshape(len(got), -1)
+    want = np.asarray(want, float).reshape(len(want), -1)
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        return float("inf")
+    fin = np.isfinite(want)
+    return _rel_err(np.where(fin, got, 0.0), np.where(fin, want, 0.0),
+                    per_row=True)
+
+
+def _field_source_checks(orig, line_calls, spectra_calls):
+    """Steps 10-11 of the field's cold run against the same functions on
+    the CPU: every line max image value for value, the first chunk's
+    spectra within SPECTRA_REL, the first files' detection-cube cutouts
+    exactly."""
+    import numpy as np
+    import torch
+
+    from origin_tpu_torch.artifacts import Source
+    from origin_tpu_torch.core import Cube
+    from origin_tpu_torch.ops.cutouts import line_max_images
+    from origin_tpu_torch.ops.spectra import source_spectra
+
+    cubes = {0: orig.cube_correl, 1: orig.cube_std}
+    copies = {}
+
+    def host(t):
+        """The host copy of a device tensor (a detection cube's own)."""
+        if not torch.is_tensor(t):
+            return t
+        for c in cubes.values():
+            if t is c.tensor:
+                return torch.from_numpy(c.data)
+        if t.numel() < 2**20:
+            return t.cpu()
+        return copies.setdefault(id(t), t.cpu())
+
+    t0 = time.perf_counter()
+    same, nimg = True, 0
+    for args, (got, _) in line_calls:
+        want, _ = line_max_images(host(args[0]), *args[1:])
+        same &= np.array_equal(got.cpu().numpy(), want.numpy(),
+                               equal_nan=True)
+        nimg += len(want)
+    lines = orig.Cat3_lines
+    need = len(lines) + int((np.asarray(lines["merged_in"]) == -9999).sum())
+    check(same and nimg >= need,
+          f"field: the {nimg} line max images of steps 10-11 on the card "
+          "equal line_max_images on the CPU from the host detection cubes, "
+          "value for value")
+    nsrc, err = 0, 0.0
+    for args, got in spectra_calls:
+        if nsrc >= FIELD_CPU_SOURCES:
+            break
+        want = source_spectra(*(host(a) for a in args))
+        err = max([err] + [_rows_rel_err(got[k].cpu().numpy(),
+                                         want[k].numpy()) for k in want])
+        nsrc += len(args[3])
+    check(nsrc >= min(FIELD_CPU_SOURCES, len(orig.Cat3_sources))
+          and err <= SPECTRA_REL,
+          f"field: the spectra of the first {nsrc} sources on the card "
+          f"within {err:.3g} <= {SPECTRA_REL:g} of each row's largest "
+          "magnitude of source_spectra on the CPU")
+    cat = orig.Cat3_sources
+    exact = []
+    for row in cat[:FIELD_CUTOUT_FILES]:
+        comp = int(row["comp"])
+        src = Source.from_file(os.path.join(
+            orig.outpath, "sources", "source-%05d.fits" % int(row["ID"])))
+        got = src.cubes["ORI_SNCUBE" if comp else "ORI_CORREL"].data
+        parent = Cube(data=cubes[comp].data, wcs=orig.wcs, wave=orig.wave,
+                      copy=False)
+        sub = parent.subcube((float(row["dec"]), float(row["ra"])),
+                             got.shape[1], unit_center="deg")
+        exact.append(np.array_equal(
+            got, np.where(sub.mask, np.nan, sub.data), equal_nan=True))
+    check(all(exact), f"field: the detection-cube cutouts of the first "
+          f"{len(exact)} source files equal the host cube's subcube, NaN "
+          "outside the field included")
+    return dict(line_images=nimg, spectra_sources=nsrc, spectra_rel_err=err,
+                cutout_files=len(exact),
+                cpu_s=time.perf_counter() - t0)
+
+
 def _path_kernels(precision):
     """The kernels that steps 01-07 launch at this precision."""
     if precision == "bf16x3":
@@ -642,8 +867,8 @@ def phase_minicube(precision="highest", names=STEP_NAMES):
     from tools_torch.synthetic import BRIGHT_LINES, FAINT_LINES
 
     cube_fn, seg_fn = _minicube_files()
-    kwargs = dict(step02=dict(minsize=30, maxsize=60),
-                  step06=dict(purity=0.8), step07=dict(segmap=seg_fn))
+    kwargs = dict(STEP_KWARGS, step02=dict(minsize=30, maxsize=60),
+                  step07=dict(segmap=seg_fn))
     reset_counts()
     orig = ORIGIN.init(cube_fn, name=f"minicube_{precision}", path=WORK,
                        loglevel="WARNING", device="cuda")
@@ -673,6 +898,8 @@ def phase_minicube(precision="highest", names=STEP_NAMES):
     check(got == tot, f"minicube: {got}/{tot} injected lines in Cat1")
     if "step09" in names:
         out["lines"] = _minicube_lines_checks(orig)
+    if "step11" in names:
+        out["sources"] = _minicube_source_checks(orig)
     _rerun_with_plain(orig, kwargs, precision)
     orig.close_logfile()
     out["walls"] = walls
@@ -705,12 +932,14 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
     to 0 just before the cold run and read just after it."""
     import torch
 
+    from origin_tpu_torch.artifacts import masks
+    from origin_tpu_torch.ops import spectra
     from origin_tpu_torch.pipeline.session import ORIGIN
 
     cube, lines = field
-    kwargs = dict(step06=dict(purity=0.8))
     out = {}
     runs = ("cold", "warm")
+    sources = "step11" in names
     for run in runs:
         gc.collect()  # the session <-> engine cycle holds the last run's cubes
         torch.cuda.empty_cache()
@@ -720,7 +949,10 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
             reset_counts()
         orig = ORIGIN.init(cube, name=f"field_{precision}_{run}", path=WORK,
                            loglevel="WARNING", device="cuda")
-        walls = _run_steps(orig, kwargs, names)
+        peaks = {}
+        with _Recorder(masks, "line_max_images") as line_calls, \
+                _Recorder(spectra, "source_spectra") as spectra_calls:
+            walls = _run_steps(orig, STEP_KWARGS, names, peaks=peaks)
         if first:
             counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -729,6 +961,21 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
             " GiB")
         out[run] = dict(walls=walls, total=sum(walls.values()),
                         peak_bytes=peak, **_summary(orig, GOLD_FIELD))
+        if sources:
+            nmask, nsrc, nbytes = _source_files(orig)
+            p09 = peaks["step09"]
+            log(f"  {run}: steps 01-09 {sum(walls[k] for k in names[:9]):.3f}"
+                f" s, steps 10-11 {walls['step10'] + walls['step11']:.3f} s;"
+                f" {nsrc} source files and {nmask} mask files, {nbytes} "
+                f"bytes; peak through step 09 {p09 / 2**30:.3f} GiB")
+            out[run].update(mask_files=nmask, source_files=nsrc,
+                            source_bytes=nbytes, peak_step09_bytes=p09)
+            check(nsrc == len(orig.Cat3_sources) and nmask == 2 * nsrc,
+                  f"field {run}: one source file and two mask files for "
+                  f"each of the {len(orig.Cat3_sources)} Cat3 sources")
+            check(peak <= PEAK_GROWTH * p09, f"field {run}: steps 10-11 keep "
+                  f"the peak within {PEAK_GROWTH:g} x steps 01-09's "
+                  f"({peak / p09:.4f})")
         if first:
             log(f"  launches in this run: {counts}")
             out[run]["launches"] = counts
@@ -738,7 +985,12 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
             _field_checks(out[run], orig, lines)
             if "step08" in names:
                 out[run]["lines"] = _field_lines_checks(orig)
-            _rerun_with_plain(orig, kwargs, precision)
+            if sources:
+                out[run]["sources"] = _field_source_checks(
+                    orig, line_calls.calls, spectra_calls.calls)
+            _rerun_with_plain(orig, STEP_KWARGS, precision)
+        for sub in ("masks", "sources"):
+            shutil.rmtree(os.path.join(orig.outpath, sub), ignore_errors=True)
         orig.close_logfile()
         del orig
     return out, counts
@@ -1055,9 +1307,9 @@ def main():
     res["build"] = phase_build()
     log("[3] sweep kernel vs plain at %dx%dx%d" % FIELD)
     res["sweep"] = phase_sweep_parity("highest")
-    log("[4] minicube steps 01-09 on cuda")
+    log("[4] minicube steps 01-11 on cuda")
     res["minicube"] = phase_minicube()
-    log("[5] field %dx%dx%d steps 01-09 on cuda" % FIELD)
+    log("[5] field %dx%dx%d steps 01-11 on cuda" % FIELD)
     t0 = time.perf_counter()
     field = make_field(*FIELD, seed=7)
     log(f"  field {FIELD} generated in {time.perf_counter() - t0:.1f} s")

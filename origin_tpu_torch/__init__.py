@@ -1,10 +1,10 @@
 """origin_tpu_torch — ORIGIN's detection and line estimation in PyTorch and CUDA.
 
 A port of :mod:`origin_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100.
-It runs steps 01-09 of a session, from the cube to the Cat3 line and
-source catalogs, through the same entry point (``ORIGIN.init(cube, ...,
-device="cuda")`` then ``step01_preprocessing()`` ..
-``step09_clean_results()``).  The GLR
+It runs steps 01-11 of a session, from the cube to the Cat3 line and
+source catalogs and the per-source mask and FITS files, through the same
+entry point (``ORIGIN.init(cube, ..., device="cuda")`` then
+``step01_preprocessing()`` .. ``step11_save_sources(version)``).  The GLR
 spectral sweep of step 05 runs in a hand-written CUDA kernel
 (``csrc/toeplitz_sweep.cu``), in float32 or in the bf16x3 mode
 (``ORIGIN_TPU_PRECISION=bf16x3``), where the spatial FSF stage runs in a

@@ -9,7 +9,9 @@ session from it mid-pipeline.
 
 Steps 08-09 need nothing more: line estimation has no weights and reads
 the raw cube, its variance, the PSF and Cat1, which the session already
-holds, and step 09 works on the catalogs.
+holds, and step 09 works on the catalogs.  Steps 10-11 have no parameters
+either: they read Cat3, the detection cubes, ``segmap_label`` /
+``segmap_merged``, the raw cube and the FSF, all held by the session.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Cube / Image / Spectrum containers.
 
 (The port's copy of the part of ``origin_tpu/core/containers.py`` that steps
-01-09 use: float data with optional variance and mask, world coordinates, FITS
-reads and writes, the reductions of a session's white image, and the
-trimmed per-line spectra of step 08.)
+01-11 use: float data with optional variance and mask, world coordinates, FITS
+reads and writes, the reductions of a session's white image, the trimmed
+per-line spectra of step 08 and the cutouts of steps 10-11.  The int16 wire
+of the JAX package's session files is not ported, so every cutout is
+float32.)
 
 Replaces the subset of ``mpdaf.obj.Cube/Image/Spectrum`` used by the reference
 (see reference steps.py:284-299): data + optional variance + optional boolean
@@ -18,7 +20,7 @@ import numpy as np
 from .. import fitsio
 from .coords import WCS, WaveCoord
 
-__all__ = ["Cube", "Image", "Spectrum"]
+__all__ = ["Cube", "Image", "Spectrum", "cutout_window", "cutout_wcs"]
 
 
 class _Base:
@@ -125,6 +127,32 @@ class _Base:
         out[bad] = fill_value
         return out
 
+    def _dense_cls(self):
+        """Container class for derived results (copy), keyed on
+        dimensionality."""
+        return {3: Cube, 2: Image, 1: Spectrum}.get(self.ndim, type(self))
+
+    def copy(self):
+        new = self._dense_cls()(
+            data=self.data, var=self.var, mask=self.mask,
+            wcs=self._copy_wcs(), wave=self._copy_wave(), copy=True,
+        )
+        new.primary_header = self.primary_header.copy()
+        return new
+
+    def _copy_wcs(self):
+        if self.wcs is None:
+            return None
+        return WCS(crpix=tuple(self.wcs.crpix), crval=tuple(self.wcs.crval),
+                   cd=self.wcs.cd.copy(), shape=self.wcs.shape)
+
+    def _copy_wave(self):
+        if self.wave is None:
+            return None
+        return WaveCoord(crpix=self.wave.crpix, crval=self.wave.crval,
+                         cdelt=self.wave.cdelt, ctype=self.wave.ctype,
+                         shape=self.wave.shape)
+
     # -- reductions --------------------------------------------------------------
     def _reduce(self, func, axis):
         import warnings
@@ -225,16 +253,223 @@ class _Base:
         self.data_header = hdr
 
 
+def _norm_slice(sl, n):
+    """``sl`` as a slice: passed through, or an integer's length-1 window
+    (numpy negative-index semantics, via :func:`int_window`)."""
+    if isinstance(sl, slice):
+        return sl
+    return int_window(sl, n)
+
+
+def int_window(i, n):
+    """A length-1 slice covering integer index ``i`` of an axis of size
+    ``n``, with numpy's negative-index semantics (``-1`` is the last
+    element, not an empty window — ``slice(-1, 0)`` would be)."""
+    i = int(i)
+    if i < 0:
+        i += n
+    return slice(i, i + 1)
+
+
+def cutout_window(y, x, size):
+    """Start indices of a (size x size) cutout centred at (y, x).
+
+    THE shared convention: Cube.subcube, Image.subimage, TensorCube.subcube
+    and the batched device cutouts (artifacts.masks, ops.cutouts) must all
+    agree on it, or device windows would silently shift against host ones.
+    ``np.rint`` rounds half to even.
+    """
+    size = int(size)
+    return int(np.rint(y)) - size // 2, int(np.rint(x)) - size // 2
+
+
+def cutout_wcs(wcs, y0, x0, size):
+    """WCS of a (size x size) cutout starting at pixel (y0, x0)."""
+    if wcs is None:
+        return None
+    return WCS(
+        crpix=(wcs.crpix[0] - y0, wcs.crpix[1] - x0),
+        crval=tuple(wcs.crval),
+        cd=wcs.cd.copy(),
+        shape=(size, size),
+    )
+
+
 class Cube(_Base):
     """(Nz, Ny, Nx) spectral cube."""
 
     _ndim = 3
+
+    def _region(self, zsl, ysl, xsl):
+        """(data, var, mask) blocks for a rectangular region."""
+        return (
+            self.data[zsl, ysl, xsl],
+            None if self.var is None else self.var[zsl, ysl, xsl],
+            None if self.mask is None else self.mask[zsl, ysl, xsl],
+        )
+
+    def __getitem__(self, item):
+        if isinstance(item, (int, np.integer)):
+            item = (item,)
+        if not isinstance(item, tuple):
+            item = (item,)
+        item = item + (slice(None),) * (3 - len(item))
+        zsl, ysl, xsl = item
+        if all(isinstance(sl, (int, np.integer, slice))
+               for sl in (zsl, ysl, xsl)):
+            data, var, mask = self._region(zsl, ysl, xsl)
+        else:
+            # fancy (array/boolean) indexing: plain numpy semantics on
+            # the dense arrays
+            data = self.data[zsl, ysl, xsl]
+            var = self.var[zsl, ysl, xsl] if self.var is not None else None
+            mask = (self.mask[zsl, ysl, xsl]
+                    if self.mask is not None else None)
+        if data.ndim == 3:
+            wave = self.wave[_norm_slice(zsl, self.shape[0])] if (
+                self.wave is not None and isinstance(zsl, slice)) else self.wave
+            wcs = self.wcs[ysl, xsl] if self.wcs is not None else None
+            return Cube(data=data, var=var, mask=mask, wcs=wcs, wave=wave, copy=False)
+        z_int = not isinstance(zsl, slice)
+        if data.ndim == 2 and z_int:  # one channel
+            wcs = self.wcs[ysl, xsl] if self.wcs is not None else None
+            return Image(data=data, var=var, mask=mask, wcs=wcs, copy=False)
+        if data.ndim == 1 and not z_int:  # one spaxel
+            wave = (
+                self.wave[zsl] if self.wave is not None else None
+            )
+            return Spectrum(data=data, var=var, mask=mask, wave=wave, copy=False)
+        # cross-sections (e.g. cube[:, 2, :] or cube[2, 3, :]) have no
+        # well-defined Cube/Image/Spectrum coordinates: return the raw array
+        return data
+
+    def subcube(self, center, size, lbda=None, unit_center=None, unit_size=None):
+        """Extract a (size x size) spatial cutout centred on ``center``.
+
+        ``center`` is (y, x) in pixels when ``unit_center`` is None, else
+        (dec, ra) in degrees.  The returned cube always has the requested
+        size; pixels outside the field are masked.
+        """
+        if unit_center is not None:
+            (y, x), = self.wcs.sky2pix([center])
+        else:
+            y, x = center
+        size = int(size)
+        nz, ny, nx = self.shape
+        y0, x0 = cutout_window(y, x, size)
+        zsl = slice(0, nz)
+        if lbda is not None:
+            k1 = int(self.wave.pixel(lbda[0], nearest=True))
+            k2 = int(self.wave.pixel(lbda[1], nearest=True))
+            zsl = slice(k1, k2 + 1)
+        nzz = zsl.stop - zsl.start
+        sy0, sy1 = max(0, y0), min(ny, y0 + size)
+        sx0, sx1 = max(0, x0), min(nx, x0 + size)
+        wcs = cutout_wcs(self.wcs, y0, x0, size)
+        wave = self._copy_wave()
+        if lbda is not None and wave is not None:
+            wave = self.wave[zsl]
+        if sy1 - sy0 == size and sx1 - sx0 == size:
+            # fully in-field window (the common case): one contiguous copy
+            # per array, no fill pass
+            dblock, vblock, mblock = self._region(
+                zsl, slice(y0, y0 + size), slice(x0, x0 + size)
+            )
+            data = np.array(dblock, order="C", copy=True)
+            var = (None if vblock is None
+                   else np.array(vblock, order="C", copy=True))
+            mask = (np.array(mblock, order="C", copy=True)
+                    if mblock is not None
+                    else np.zeros((nzz, size, size), dtype=bool))
+            return Cube(data=data, var=var, mask=mask, wcs=wcs, wave=wave,
+                        copy=False)
+        data = np.zeros((nzz, size, size), dtype=self.dtype)
+        mask = np.ones((nzz, size, size), dtype=bool)
+        var = None
+        if self.var is not None:
+            var = np.full((nzz, size, size), np.inf, dtype=self.var.dtype)
+        if sy0 < sy1 and sx0 < sx1:
+            dy0, dx0 = sy0 - y0, sx0 - x0
+            dblock, vblock, mblock = self._region(
+                zsl, slice(sy0, sy1), slice(sx0, sx1)
+            )
+            data[:, dy0 : dy0 + sy1 - sy0, dx0 : dx0 + sx1 - sx0] = dblock
+            mask[:, dy0 : dy0 + sy1 - sy0, dx0 : dx0 + sx1 - sx0] = (
+                mblock if mblock is not None else False
+            )
+            if var is not None and vblock is not None:
+                var[:, dy0 : dy0 + sy1 - sy0, dx0 : dx0 + sx1 - sx0] = vblock
+        return Cube(data=data, var=var, mask=mask, wcs=wcs, wave=wave, copy=False)
+
+    def get_image(self, wave, unit_wave=None, method="sum"):
+        """Image reduced over an (inclusive) spectral range.
+
+        ``wave`` is (zmin, zmax) in pixels when ``unit_wave`` is None, else in
+        wavelength units.
+        """
+        z1, z2 = wave
+        if unit_wave is not None:
+            z1 = int(self.wave.pixel(z1, nearest=True))
+            z2 = int(self.wave.pixel(z2, nearest=True))
+        z1 = max(0, int(z1))
+        z2 = min(self.shape[0] - 1, int(z2))
+        sub, _, msub = self._region(
+            slice(z1, z2 + 1), slice(None), slice(None))
+        import warnings
+
+        func = {"sum": np.nansum, "mean": np.nanmean, "max": np.nanmax}[method]
+        if msub is not None:
+            sub = np.where(msub, np.nan, sub)
+        with np.errstate(invalid="ignore"), warnings.catch_warnings():
+            warnings.simplefilter("ignore", category=RuntimeWarning)
+            img = func(sub, axis=0)
+        mask = ~np.isfinite(img)
+        if method == "sum":
+            mask |= np.all(~np.isfinite(sub), axis=0)
+        img = np.where(mask, 0.0, img)
+        return Image(data=img, mask=mask if mask.any() else None, wcs=self.wcs,
+                     copy=False)
 
 
 class Image(_Base):
     """(Ny, Nx) image."""
 
     _ndim = 2
+
+    def __getitem__(self, item):
+        if not isinstance(item, tuple):
+            item = (item, slice(None))
+        ysl, xsl = item
+        data = self.data[ysl, xsl]
+        var = self.var[ysl, xsl] if self.var is not None else None
+        mask = self.mask[ysl, xsl] if self.mask is not None else None
+        if data.ndim == 2:
+            wcs = self.wcs[ysl, xsl] if self.wcs is not None else None
+            return Image(data=data, var=var, mask=mask, wcs=wcs, copy=False)
+        return data
+
+    def subimage(self, center, size, unit_center=None, unit_size=None):
+        if unit_center is not None:
+            (y, x), = self.wcs.sky2pix([center])
+        else:
+            y, x = center
+        size = int(size)
+        ny, nx = self.shape
+        y0, x0 = cutout_window(y, x, size)
+        data = np.zeros((size, size), dtype=self.data.dtype)
+        mask = np.ones((size, size), dtype=bool)
+        sy0, sy1 = max(0, y0), min(ny, y0 + size)
+        sx0, sx1 = max(0, x0), min(nx, x0 + size)
+        if sy0 < sy1 and sx0 < sx1:
+            dy0, dx0 = sy0 - y0, sx0 - x0
+            data[dy0 : dy0 + sy1 - sy0, dx0 : dx0 + sx1 - sx0] = self.data[
+                sy0:sy1, sx0:sx1
+            ]
+            mask[dy0 : dy0 + sy1 - sy0, dx0 : dx0 + sx1 - sx0] = (
+                self.mask[sy0:sy1, sx0:sx1] if self.mask is not None else False
+            )
+        wcs = cutout_wcs(self.wcs, y0, x0, size)
+        return Image(data=data, mask=mask, wcs=wcs, copy=False)
 
 
 class Spectrum(_Base):

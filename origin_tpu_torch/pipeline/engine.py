@@ -4,10 +4,10 @@ Torch port of the main-path subset of
 :class:`origin_tpu.pipeline.engine.DeviceEngine`: steps 01 (DCT +
 standardization + local extrema), 04 (greedy PCA per area), 05 (GLR
 matched filter), 07 (detection extraction), 08 (the detections'
-minicubes) and 09 (cube standard deviations) keep every cube-sized
-intermediate on the session's device, and only 2-D images, per-area
-vectors, (50,)-vectors, sparse detection lists and per-line results come
-back to the host.
+minicubes), 09 (cube standard deviations) and 11 (the sources' spectra)
+keep every cube-sized intermediate on the session's device, and only 2-D
+images, per-area vectors, (50,)-vectors, sparse detection lists and
+per-line and per-source results come back to the host.
 
 The JAX engine's transfer machinery (streamed ingest, int16 and
 bit-packed wires, speculative and bucketed compaction, host rebuilds)
@@ -36,6 +36,7 @@ from ..ops.lines import gather_windows
 from ..ops.localmax import compute_local_max
 from ..ops.pca import greedy_pca
 from ..ops.spatial import spatial_fsf, spatial_kernel_admits
+from ..ops.spectra import batched_source_spectra
 from ..ops.stats import o2test, standardize
 from ..ops.sweep import spectral_sweep
 from .products import TensorCube
@@ -349,3 +350,25 @@ class TorchEngine:
         """Population standard deviation of a cube product (``jnp.std``;
         torch's default ``correction=1`` would be the sample one)."""
         return float(torch.std(self.get(name), correction=0))
+
+    # -- step 11 -----------------------------------------------------------
+    def source_spectra(self, jobs_by_size, wcube_fn=None):
+        """Batched device extraction of every source's spectra.
+
+        ``jobs_by_size`` maps a cutout edge ``m`` to a list of job dicts
+        (see :func:`origin_tpu_torch.ops.spectra.batched_source_spectra`)
+        whose ``y0``/``x0`` are window starts in FIELD coordinates
+        (possibly negative near the border).  ``wcube_fn(m)`` returns the
+        (Nz, m, m) PSF weight cube for that size, or None.  The windows
+        are gathered from the resident inputs, cells outside the field
+        filled as the JAX engine's padded copies are.
+
+        Returns ``{source_id: {tag: spectrum}}``.
+        """
+        out = {}
+        for m, jobs in sorted(jobs_by_size.items()):
+            wcube = wcube_fn(m) if wcube_fn is not None else None
+            out.update(batched_source_spectra(
+                self.input_cube(), self.input_var(), self.input_mask(), jobs,
+                wcube))
+        return out

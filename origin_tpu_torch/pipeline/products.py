@@ -1,12 +1,20 @@
 """Named step products, live in memory.
 
-The part of :mod:`origin_tpu.pipeline.products` that steps 01-09 use: a
+The part of :mod:`origin_tpu.pipeline.products` that steps 01-11 use: a
 per-step name -> value store and the catalog print formats.  Parking
 products in a session directory comes with session I/O (see ROADMAP.md).
-Cube-sized products stay on the session's device as :class:`TensorCube`.
+Cube-sized products stay on the session's device as :class:`TensorCube`,
+whose cutouts (:meth:`TensorCube.subcube`) replace the JAX package's
+windowed ``DeferredCube`` reads.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.containers import Cube, cutout_wcs, cutout_window
+from ..ops.lines import gather_windows
 
 __all__ = ["ProductStore", "TensorCube", "format_catalog"]
 
@@ -46,6 +54,36 @@ class TensorCube:
         if self._host is None:
             self._host = self.tensor.cpu().numpy()
         return self._host
+
+    def subcube(self, center, size, unit_center=None):
+        """The host ``Cube`` of one (Nz, size, size) window of the tensor.
+
+        ``Cube.subcube``'s semantics (``center`` in pixels, or (dec, ra)
+        in degrees with ``unit_center``; the window of
+        :func:`~origin_tpu_torch.core.containers.cutout_window`): pixels
+        outside the field are data 0 and mask True, non-finite values are
+        masked.  One index gather on the device; only the window comes to
+        the host.
+        """
+        if unit_center is not None:
+            (y, x), = self.wcs.sky2pix([center])
+        else:
+            y, x = center
+        size = int(size)
+        y0, x0 = cutout_window(y, x, size)
+        ctr = torch.tensor([[y0 + size // 2], [x0 + size // 2]],
+                           device=self.tensor.device)
+        data = gather_windows(self.tensor, ctr[0], ctr[1], size,
+                              0.0)[0].cpu().numpy()
+        ny, nx = self.shape[1:]
+        iy, ix = np.arange(y0, y0 + size), np.arange(x0, x0 + size)
+        inside = (((iy >= 0) & (iy < ny))[:, None]
+                  & ((ix >= 0) & (ix < nx))[None, :])
+        out = Cube(data=data, mask=~inside[None] | ~np.isfinite(data),
+                   wcs=cutout_wcs(self.wcs, y0, x0, size), wave=self.wave,
+                   copy=False)
+        out.wave = out._copy_wave()
+        return out
 
     def __repr__(self):
         return (f"<TensorCube {self.shape} {self.tensor.dtype} on "

@@ -1,8 +1,8 @@
-"""The ORIGIN session for the torch port: steps 01-09 on an explicit device.
+"""The ORIGIN session for the torch port: steps 01-11 on an explicit device.
 
 Port of the step wiring of :mod:`origin_tpu.pipeline.session`
-(``ORIGIN.init`` and ``step01_preprocessing`` .. ``step09_clean_results``).
-Session write/load and steps 10-11 are not ported yet and raise
+(``ORIGIN.init`` and ``step01_preprocessing`` .. ``step11_save_sources``).
+Session write/load are not ported yet and raise
 :class:`NotImplementedError` naming their ROADMAP.md item.
 """
 
@@ -32,8 +32,6 @@ LOGGER_NAME = "origin_tpu_torch"
 
 #: ROADMAP.md section 1 items that port what is not here yet
 _LATER = {
-    "step10_create_masks": "Steps 10-11: masks and sources",
-    "step11_save_sources": "Steps 10-11: masks and sources",
     "write": "Session I/O",
     "load": "Session I/O",
 }
@@ -67,8 +65,8 @@ class ORIGIN:
     """ORIGIN session: blind emission-line detection on one datacube.
 
     Composed of the raw cube + variance, a dictionary of spectral profiles
-    and the FSF model; drives steps 01-09 (``step01_preprocessing`` ..
-    ``step09_clean_results``) on ``device`` (``"cuda"``, or ``"cpu"`` when
+    and the FSF model; drives steps 01-11 (``step01_preprocessing`` ..
+    ``step11_save_sources``) on ``device`` (``"cuda"``, or ``"cpu"`` when
     asked for).
     """
 
@@ -195,12 +193,6 @@ class ORIGIN:
 
     def write(self, path=None, erase=False, compat=None):
         raise _not_ported("write")
-
-    def step10_create_masks(self, *args, **kwargs):
-        raise _not_ported("step10_create_masks")
-
-    def step11_save_sources(self, *args, **kwargs):
-        raise _not_ported("step11_save_sources")
 
     # -- logging -------------------------------------------------------------
     def _setup_logfile(self, logger):

@@ -27,11 +27,14 @@ import pytest
 import torch
 
 import lines_cases
+import sources_cases
 from origin_tpu_torch.core import MoffatFSF
 from origin_tpu_torch.core.profiles import (
     DICO_3FWHM, DICO_FWHM_2_12, default_dictionary_path, load_dictionary,
 )
-from origin_tpu_torch.ops import glr, kernels, lines, spatial
+from origin_tpu_torch.ops import (
+    cutouts, glr, kernels, lines, spatial, spectra,
+)
 from origin_tpu_torch.ops.convolve import fft2_shape
 from origin_tpu_torch.ops.prec import split_bf16
 from origin_tpu_torch.ops.spatial import spatial_fsf
@@ -446,3 +449,70 @@ def test_cuda_estimation_line_arrays_matches_cpu(cuda, mosaic):
     lines_cases.hold(lines.estimation_line_arrays(*args, device=cuda, **kw),
                      lines.estimation_line_arrays(*args, device="cpu", **kw),
                      rtol=1e-4)
+
+
+# -- steps 10-11: the window ops (stock torch ops) on the card against the CPU
+# The same functions on both devices (inputs: tests/sources_cases.py): the
+# max images and max maps exactly (a max is exact), the window cutouts
+# exactly, the sums in another order: the object-mean spectra at rtol 1e-6
+# and the source spectra within 1e-5 of each row's largest magnitude, with
+# NaN and infinities in the same places.
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", sources_cases.SIZES)
+def test_cuda_line_max_images_matches_cpu(cuda, size):
+    cube = torch.from_numpy(sources_cases.detection_cube())
+    jobs = sources_cases.line_jobs(size)
+    want, wvalid = cutouts.line_max_images(cube, *jobs, size)
+    got, valid = cutouts.line_max_images(cube.to(cuda), *jobs, size)
+    assert torch.equal(valid.cpu(), wvalid)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", sources_cases.SIZES)
+def test_cuda_window_ori_stats_matches_cpu(cuda, size):
+    cube = torch.from_numpy(sources_cases.detection_cube())
+    y0, x0 = sources_cases.window_starts(size)
+    objm = sources_cases.object_masks(size, len(y0))
+    want = cutouts.window_ori_stats(cube, y0, x0, objm, size)
+    got = cutouts.window_ori_stats(cube.to(cuda), y0, x0, objm, size)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+    spec, wspec = got[0].cpu().numpy(), want[0].numpy()
+    sources_cases.same_nonfinite(spec, wspec)
+    fin = np.isfinite(wspec)
+    np.testing.assert_allclose(spec[fin], wspec[fin], rtol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_psf", [True, False], ids=["psf", "no_psf"])
+@pytest.mark.parametrize("size", sources_cases.SIZES)
+def test_cuda_source_spectra_matches_cpu(cuda, size, has_psf):
+    case = sources_cases.spectra_inputs(size)
+    names = ("cube", "var", "mask", "y0", "x0", "objm", "skym", "wcube",
+             "lsrc", "lw")
+    args = [torch.from_numpy(np.ascontiguousarray(case[k])) for k in names]
+    want = spectra.source_spectra(*args, size, has_psf)
+    got = spectra.source_spectra(*(a.to(cuda) for a in args), size, has_psf)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        sources_cases.hold_rows(got[key].cpu().numpy(), want[key].numpy(),
+                                1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [4, 5, 7])
+def test_cuda_tensor_cube_subcube_matches_cpu(cuda, size):
+    from origin_tpu_torch.core.coords import WCS, WaveCoord
+    from origin_tpu_torch.pipeline.products import TensorCube
+
+    cube = torch.from_numpy(sources_cases.detection_cube())
+    wcs = WCS(crpix=(3.0, 4.0), crval=(-30.0, 53.0))
+    wave = WaveCoord(crpix=1.0, crval=4750.0, cdelt=1.25)
+    host, card = (TensorCube(c, wcs=wcs, wave=wave)
+                  for c in (cube, cube.to(cuda)))
+    for center in [(5.0, 7.0), (2.5, 3.5), (-1.0, 7.0), (11.5, -2.0),
+                   (13.0, 16.0), (30.0, 40.0)]:
+        a, b = card.subcube(center, size), host.subcube(center, size)
+        for name in ("data", "mask"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        assert tuple(a.wcs.crpix) == tuple(b.wcs.crpix)

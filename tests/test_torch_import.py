@@ -1,5 +1,5 @@
-"""The torch port imports nothing of jax, yaml or the JAX package; its
-device is explicit; its copies of the JAX package's host substrate
+"""The torch port imports nothing of jax, yaml, joblib, tqdm or the JAX
+package; its device is explicit; its copies of the JAX package's host substrate
 (``core``, ``fitsio``, ``native``, the dictionaries and the synthetic
 cubes of ``tools_torch/synthetic.py``) behave as the originals do."""
 
@@ -19,11 +19,11 @@ TESTS = os.path.join(REPO, "tests")
 
 
 def test_port_runs_without_jax_or_yaml(tmp_path):
+    # steps 01-11; the card's machine has no joblib or tqdm
     code = textwrap.dedent(f"""
         import os, sys
-        sys.modules["jax"] = None
-        sys.modules["yaml"] = None
-        sys.modules["origin_tpu"] = None
+        for name in ("jax", "yaml", "joblib", "tqdm", "origin_tpu"):
+            sys.modules[name] = None
         sys.path[:0] = [{REPO!r}]
         import torch
         torch.set_num_threads(2)
@@ -58,9 +58,14 @@ def test_port_runs_without_jax_or_yaml(tmp_path):
                 orig.step09_clean_results()
                 counts["cat3"] = (len(orig.Cat3_lines),
                                   len(orig.Cat3_sources))
+                orig.step10_create_masks()
+                orig.step11_save_sources("0.1", n_jobs=2)
+                counts["files"] = tuple(
+                    len(os.listdir(os.path.join(orig.outpath, d)))
+                    for d in ("masks", "sources"))
             orig.close_logfile()
         assert counts == {{"highest": (15, 14), "bf16x3": (15, 14),
-                           "cat3": (14, 13)}}, counts
+                           "cat3": (14, 13), "files": (26, 13)}}, counts
         if not torch.cuda.is_available():
             try:
                 session.ORIGIN.init(path, device="cuda",
@@ -70,7 +75,8 @@ def test_port_runs_without_jax_or_yaml(tmp_path):
             else:
                 raise AssertionError("device='cuda' did not raise")
         loaded = [m for m, v in sys.modules.items() if v is not None
-                  and m.split(".")[0] in ("jax", "yaml", "origin_tpu")]
+                  and m.split(".")[0] in ("jax", "yaml", "joblib", "tqdm",
+                                          "origin_tpu")]
         assert not loaded, loaded
         print("PORT-OK")
     """)
@@ -90,16 +96,17 @@ def test_unported_entry_points_name_the_roadmap(tmp_path):
     make_minicube(path, nz=40, ny=10, nx=12)
     orig = ORIGIN.init(path, device="cpu", path=str(tmp_path), name="t",
                        loglevel="WARNING")
-    for call in (orig.write, orig.step10_create_masks,
-                 orig.step11_save_sources, lambda: ORIGIN.load("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for call in (orig.write, lambda: ORIGIN.load("x")):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*Session I/O"):
             call()
     assert [s.method_name for s in orig.steps.values()] == [
         "step01_preprocessing", "step02_areas",
         "step03_compute_PCA_threshold", "step04_compute_greedy_PCA",
         "step05_compute_TGLR", "step06_compute_purity_threshold",
         "step07_detection", "step08_compute_spectra",
-        "step09_clean_results",
+        "step09_clean_results", "step10_create_masks",
+        "step11_save_sources",
     ]
     orig.close_logfile()
 

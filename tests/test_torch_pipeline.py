@@ -1,7 +1,7 @@
-"""The slice: steps 01-09 of the torch port against the JAX package.
+"""The slice: steps 01-11 of the torch port against the JAX package.
 
 Both packages run the synthetic minicube (tests/make_minicube.py) through
-steps 01-09 on the CPU with the golden parameters of tests/test_pipeline.py
+steps 01-11 on the CPU with the golden parameters of tests/test_pipeline.py
 (areas 30/60, purity 0.8, the test segmap); the JAX package with
 ``ORIGIN_TPU_CORREL_WIRE=f32``, so that its step 09 reduces the float32
 cube_correl and not the int16 wire of its host copy.
@@ -36,7 +36,23 @@ cube_correl and not the int16 wire of its host copy.
   early), Cat1 already differs (step 04): its Cat2 has the same Cat3
   counts (14 / 13 / 2), but only 5 of 14 rows share x, y and z with the
   port's.
+- Steps 10-11 of the torch slice against the JAX package run with the
+  whole budget (its step 11 also writes its session, which the port does
+  not yet): the same 13 mask pairs, arrays and CRPIX exact; the same 13
+  source files with the same extensions; header keywords equal (floats
+  from the catalogs at rtol 1e-4, the timestamps left out); MUSE_CUBE,
+  NB_LINE_*, the masks and the segmaps exact, the detection-cube cutouts
+  and images (ORI_CORREL / ORI_SNCUBE, ORI_CORR_*, ORI_MAXMAP) at atol
+  1e-3 as cube_correl above; MUSE_WHITE and the MUSE_* spectra within
+  1e-5 of their largest magnitude, ORI_SPEC_* within 1e-4, the
+  ORI_CORR* spectra within 2e-3 (the JAX package's own device-against-
+  host tolerance, tests/test_pipeline.py); the LINES, ORI_LINES, ORI_CAT
+  and NB_PAR tables with the same columns, integers exact, floats at rtol
+  1e-4.  The readings: the cutouts and images 7.0e-5, MUSE_WHITE 1.4e-6
+  (absolute), the ORI_CORR* spectra 4.8e-6, MUSE_* below 1e-6.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -45,7 +61,10 @@ import torch
 from jax_full_budget import jax_full_budget
 from make_minicube import BRIGHT_LINES, FAINT_LINES, make_minicube, make_segmap
 from origin_tpu import ORIGIN as JaxORIGIN
+from origin_tpu_torch.artifacts import Source as TSource
+from origin_tpu_torch.core import Image as TImage
 from origin_tpu_torch.pipeline.session import ORIGIN
+from origin_tpu_torch.pipeline.steps import SaveSources
 
 torch.set_num_threads(2)
 
@@ -73,6 +92,12 @@ def _lines_steps(orig):
     return orig
 
 
+def _source_steps(orig):
+    orig.step10_create_masks()
+    orig.step11_save_sources("0.1")
+    return orig
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     path = tmp_path_factory.mktemp("slice")
@@ -85,10 +110,10 @@ def runs(tmp_path_factory):
         jax_run = _lines_steps(_front_steps(
             JaxORIGIN.init(cube_fn, name="jax", **kw), seg_fn))
         with jax_full_budget():
-            jax_full = _lines_steps(_front_steps(
-                JaxORIGIN.init(cube_fn, name="jax_full", **kw), seg_fn))
-    torch_run = _lines_steps(_front_steps(
-        ORIGIN.init(cube_fn, name="torch", device="cpu", **kw), seg_fn))
+            jax_full = _source_steps(_lines_steps(_front_steps(
+                JaxORIGIN.init(cube_fn, name="jax_full", **kw), seg_fn)))
+    torch_run = _source_steps(_lines_steps(_front_steps(
+        ORIGIN.init(cube_fn, name="torch", device="cpu", **kw), seg_fn)))
     fed = _front_steps(ORIGIN.init(cube_fn, name="fed", device="cpu", **kw),
                        seg_fn, upto=3)
     fed.engine.load_state({"cube_faint": np.asarray(jax_run.cube_faint.data)})
@@ -217,3 +242,250 @@ def test_step09_cat3_matches_jax_full_budget_and_goldens(runs):
         comp = np.asarray(o.Cat3_sources["comp"])
         assert (len(o.Cat3_lines), len(o.Cat3_sources),
                 int(np.sum(comp == 1))) == (14, 13, 2)
+
+
+# -- steps 10-11 --------------------------------------------------------------
+def _session_dir(orig, sub):
+    return os.path.join(orig.outpath, sub)
+
+
+def _listing(folder):
+    return sorted(os.listdir(folder))
+
+
+def test_step10_masks_match_jax_full_budget(runs):
+    """Every mask array and its CRPIX exact, the same files (no
+    problematic_masks.txt in either run on the minicube).  The runs'
+    cube_correl differ by up to 1e-3, which could flip a pixel whose
+    max-image value lies that close to the segmentation threshold: none
+    does here, so no pixel is exempted."""
+    _, t, _, jf = runs
+    names = _listing(_session_dir(t, "masks"))
+    assert names == _listing(_session_dir(jf, "masks"))
+    fits = [n for n in names if n.endswith(".fits")]
+    assert len(fits) == 26 and "problematic_masks.txt" not in names
+    for name in fits:
+        a = TImage(os.path.join(_session_dir(t, "masks"), name))
+        b = TImage(os.path.join(_session_dir(jf, "masks"), name))
+        assert a.data.dtype == b.data.dtype
+        np.testing.assert_array_equal(a.data, b.data, err_msg=name)
+        assert tuple(a.wcs.crpix) == tuple(b.wcs.crpix), name
+
+
+def _assert_same_header(a, b, what):
+    """Equal keywords; float values at rtol 1e-4, the catalogs' tolerance
+    (positions, fluxes, statistics and purities come from Cat3); the
+    timestamps differ; OR_PROF is each package's own copy of the
+    dictionary file."""
+    skip = {"SRC_TS", "CAT3_TS"}
+    assert set(a.keys()) - skip == set(b.keys()) - skip, what
+    for key in set(a.keys()) - skip:
+        x, y = a[key], b[key]
+        if key == "OR_PROF":
+            assert os.path.basename(x) == os.path.basename(y)
+        elif isinstance(y, float):
+            assert x == pytest.approx(y, rel=1e-4), (what, key)
+        else:
+            assert x == y, (what, key)
+
+
+def _assert_close_to_max(a, b, rel, what):
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    assert a.shape == b.shape, what
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=what)
+    fin = np.isfinite(b)
+    scale = np.abs(b[fin]).max() if fin.any() else 1.0
+    np.testing.assert_allclose(a[fin], b[fin], rtol=0, atol=rel * scale,
+                               err_msg=what)
+
+
+def _assert_same_file_table(a, b, what):
+    assert a.colnames == b.colnames, what
+    for col in a.colnames:
+        x, y = np.asarray(a[col]), np.asarray(b[col])
+        if y.dtype.kind == "f":
+            np.testing.assert_allclose(x, y, rtol=1e-4, equal_nan=True,
+                                       err_msg=f"{what} {col}")
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=f"{what} {col}")
+
+
+def _sources(orig, folder=None):
+    folder = folder or _session_dir(orig, "sources")
+    return {n: TSource.from_file(os.path.join(folder, n))
+            for n in _listing(folder)}
+
+
+def test_step11_source_files_match_jax_full_budget(runs):
+    """The source files of both runs (tolerances in the module doc)."""
+    _, t, _, jf = runs
+    ours, ref = _sources(t), _sources(jf)
+    assert list(ours) == list(ref) and len(ours) == 13
+    for name, b in ref.items():
+        a = ours[name]
+        _assert_same_header(a.header, b.header, name)
+        for kind in ("cubes", "images", "spectra", "tables"):
+            assert set(getattr(a, kind)) == set(getattr(b, kind)), (name,
+                                                                    kind)
+        for key, cb in b.cubes.items():
+            ca = a.cubes[key]
+            if key == "MUSE_CUBE":
+                for arr in ("data", "var"):
+                    np.testing.assert_array_equal(getattr(ca, arr),
+                                                  getattr(cb, arr))
+            else:  # ORI_CORREL / ORI_SNCUBE
+                np.testing.assert_allclose(ca.data, cb.data, rtol=0,
+                                           atol=1e-3, err_msg=key)
+            assert tuple(ca.wcs.crpix) == tuple(cb.wcs.crpix)
+        for key, ib in b.images.items():
+            ia, what = a.images[key], f"{name} {key}"
+            if key.startswith("ORI_CORR_") or key == "ORI_MAXMAP":
+                np.testing.assert_allclose(ia.data, ib.data, rtol=0,
+                                           atol=1e-3, err_msg=what)
+            elif key == "MUSE_WHITE":  # a mean over z on the device
+                _assert_close_to_max(ia.data, ib.data, 1e-5, what)
+            else:  # NB_LINE_*, the masks and the segmaps
+                np.testing.assert_array_equal(ia.data, ib.data, err_msg=what)
+        for key, sb in b.spectra.items():
+            sa, what = a.spectra[key], f"{name} {key}"
+            for arr in ("data", "var"):
+                x, y = getattr(sa, arr), getattr(sb, arr)
+                assert (x is None) == (y is None), what
+                if y is None:
+                    continue
+                if key.startswith("MUSE_"):
+                    _assert_close_to_max(x, y, 1e-5, what)
+                elif key.startswith("ORI_SPEC_"):
+                    _assert_close_to_max(x, y, 1e-4, what)
+                else:  # ORI_CORR*: the JAX package's own device/host rule
+                    scale = max(1.0, float(np.nanmax(np.abs(y))))
+                    np.testing.assert_allclose(x, y, rtol=0,
+                                               atol=2e-3 * scale,
+                                               err_msg=what)
+        _assert_same_file_table(a.lines, b.lines, f"{name} LINES")
+        for key in ("ORI_LINES", "ORI_CAT", "NB_PAR"):
+            _assert_same_file_table(a.tables[key], b.tables[key],
+                                    f"{name} {key}")
+
+
+def test_step11_device_batched_matches_host(runs, tmp_path, monkeypatch):
+    """The batched device path runs, and its files match the host
+    per-source extraction's (the JAX package's test,
+    tests/test_pipeline.py, on the port's two paths)."""
+    _, t, _, _ = runs
+    seen = {}
+    real = SaveSources._device_source_artifacts
+
+    def spy(o, nb_fwhm):
+        res = real(o, nb_fwhm)
+        seen["spectra"], seen["line_imgs"] = res
+        return res
+
+    dev_dir, host_dir = tmp_path / "device", tmp_path / "host"
+    dev_dir.mkdir()
+    host_dir.mkdir()
+    monkeypatch.setattr(SaveSources, "_device_source_artifacts",
+                        staticmethod(spy))
+    t.step11_save_sources("0.1", path=str(dev_dir))
+    assert seen["spectra"], "batched device spectra path did not run"
+    assert seen["line_imgs"], "device line images did not run"
+    monkeypatch.setattr(SaveSources, "_device_source_artifacts",
+                        staticmethod(lambda o, nb: (None, None)))
+    t.step11_save_sources("0.1", path=str(host_dir))
+
+    sub = os.path.join(t.name, "sources")
+    dev = _sources(t, str(dev_dir / sub))
+    host = _sources(t, str(host_dir / sub))
+    assert list(dev) == list(host) and len(dev) == 13
+    checked_specs = 0
+    for name in list(dev)[:4]:
+        a, b = dev[name], host[name]
+        assert set(a.spectra) == set(b.spectra)
+        for tag in a.spectra:
+            sa, sb = a.spectra[tag], b.spectra[tag]
+            scale = max(1.0, float(np.nanmax(np.abs(sb.data))))
+            np.testing.assert_allclose(
+                np.asarray(sa.data), np.asarray(sb.data),
+                atol=2e-3 * scale, err_msg=f"{name} {tag}")
+            checked_specs += 1
+        for tag in a.images:
+            if tag.startswith("ORI_CORR_") or tag in ("MUSE_WHITE",
+                                                      "ORI_MAXMAP"):
+                ia = np.asarray(a.images[tag].data, float)
+                ib = np.asarray(b.images[tag].data, float)
+                fin = np.isfinite(ia) & np.isfinite(ib)
+                assert fin.any()
+                scale = max(1.0, float(np.abs(ib[fin]).max()))
+                np.testing.assert_allclose(ia[fin], ib[fin],
+                                           atol=2e-3 * scale,
+                                           err_msg=f"{name} {tag}")
+    assert checked_specs > 10
+
+
+def _blank_timestamps(path):
+    """The file's bytes without its SRC_TS and HISTORY cards."""
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    cards = [raw[i:i + 80] for i in range(0, len(raw), 80)]
+    return b"".join(c for c in cards
+                    if not c.startswith((b"SRC_TS  ", b"HISTORY ")))
+
+
+@pytest.mark.parametrize("spectra", ["device", "host"])
+def test_step11_thread_pool_writes_the_same_files(runs, tmp_path, spectra,
+                                                  monkeypatch):
+    """n_jobs=1 and a pool of 8 threads write the same bytes, timestamps
+    aside; on the host path the workers share the PSF weight cache."""
+    _, t, _, _ = runs
+    if spectra == "host":
+        monkeypatch.setattr(SaveSources, "_device_source_artifacts",
+                            staticmethod(lambda o, nb: (None, None)))
+    for n_jobs in (1, 8):
+        (tmp_path / str(n_jobs)).mkdir()
+        t.step11_save_sources("0.1", path=str(tmp_path / str(n_jobs)),
+                              n_jobs=n_jobs)
+    one, two = (tmp_path / str(n) / t.name / "sources" for n in (1, 8))
+    assert _listing(one) == _listing(two) and len(_listing(one)) == 13
+    for name in _listing(one):
+        assert _blank_timestamps(one / name) == _blank_timestamps(
+            two / name), name
+
+
+def test_detection_free_field_runs_to_completion(runs, tmp_path):
+    """A field with zero detections (absurd thresholds) runs all 11 steps:
+    empty catalogs keep their columns and steps 10-11 write nothing."""
+    _, t, _, _ = runs
+    cube_fn = t.param["cubename"]
+    seg_fn = os.path.join(os.path.dirname(cube_fn), "segmap.fits")
+    orig = ORIGIN.init(cube_fn, name="empty", path=str(tmp_path),
+                       loglevel="ERROR", device="cpu")
+    orig.step01_preprocessing()
+    orig.step02_areas(minsize=30, maxsize=60)
+    orig.step03_compute_PCA_threshold()
+    orig.step04_compute_greedy_PCA()
+    orig.step05_compute_TGLR(ncpu=1)
+    orig.step06_compute_purity_threshold(purity=0.8)
+    orig.step07_detection(threshold=1e9, threshold_std=1e9, segmap=seg_fn)
+    assert len(orig.Cat0) == 0 and len(orig.Cat1) == 0
+    assert "x0" in orig.Cat1.colnames  # empty WITH columns
+    orig.step08_compute_spectra()
+    orig.step09_clean_results()
+    orig.step10_create_masks()
+    orig.step11_save_sources("empty", n_jobs=1)
+    assert len(orig.Cat2) == 0
+    assert len(orig.Cat3_lines) == 0 and len(orig.Cat3_sources) == 0
+    assert _listing(tmp_path / "empty" / "masks") == []
+    assert _listing(tmp_path / "empty" / "sources") == []
+    orig.close_logfile()
+
+
+def test_step11_session_from_an_in_memory_cube(runs, tmp_path, monkeypatch):
+    """A session made from a Cube object has no cube file name: its source
+    files carry CUBE = '' (the JAX package's step fails on the None)."""
+    _, t, _, _ = runs
+    monkeypatch.setitem(t.param, "cubename", None)
+    t.step11_save_sources("0.1", path=str(tmp_path))
+    folder = tmp_path / t.name / "sources"
+    assert len(_listing(folder)) == 13
+    for src in _sources(t, str(folder)).values():
+        assert src.header["CUBE"] == ""

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Per-step device profile of origin_tpu_torch's steps 01-09 on one GPU.
+"""Per-step device profile of origin_tpu_torch's steps 01-11 on one GPU.
 
-Runs steps 01-09 on the synthetic 3681x100x200 field (tools_torch/synthetic.py)
-(seed 7, default parameters, purity 0.8) twice: once cold, once warm under
+Runs steps 01-11 on the synthetic 3681x100x200 field (tools_torch/synthetic.py)
+(seed 7, default parameters, purity 0.8, source files of version "0.1";
+chip_smoke.STEP_KWARGS) twice: once cold, once warm under
 ``torch.profiler``.  For each step of the warm run it prints the host wall
 (with the device drained at both ends), the device-busy time (the union of
 the GPU kernel and memcpy intervals inside the step's window) and the idle
 share ``1 - busy / wall``, and the step's three ops with the most device
 time; then the device ops with the most device time overall.  The steps'
 own ``record_function`` ranges appear on the device timeline too and are
-left out of both.
+left out of both.  Each run's masks/ and sources/ folders are deleted
+after it.  On the cold run, step 11's host stages are timed by wrappers
+(wall-clock sums and calls: the device rounds, the two kinds of cutout,
+the narrow-band images, the FITS writes and each source's whole build).
 Writes chiprun_out/profile_field_<mode>.json and the Chrome trace
 chiprun_out/profile_field_<mode>_trace.json, <mode> the precision.
 
@@ -19,6 +23,7 @@ in the environment for the bf16x3 mode)
 
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -32,6 +37,55 @@ def _union_us(intervals):
             total += b - max(a, end)
             end = b
     return total
+
+
+class _StageTimer:
+    """Wraps step 11's stages and sums their host walls while active."""
+
+    def __init__(self):
+        from origin_tpu_torch.artifacts import source, source_creation
+        from origin_tpu_torch.core.containers import Cube
+        from origin_tpu_torch.pipeline.products import TensorCube
+        from origin_tpu_torch.pipeline.steps import SaveSources
+
+        self.targets = [
+            ("device rounds", SaveSources, "_device_source_artifacts"),
+            ("detection-cube cutouts", TensorCube, "subcube"),
+            ("raw-cube cutouts", Cube, "subcube"),
+            ("narrow-band images", source.Source,
+             "add_narrow_band_image_lbdaobs"),
+            ("FITS writes", source.Source, "write"),
+            ("source builds (writes included)", source_creation,
+             "create_source"),
+        ]
+        self.sums = {label: [0.0, 0] for label, _, _ in self.targets}
+
+    def _wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.sums[label][0] += time.perf_counter() - t0
+                self.sums[label][1] += 1
+
+        return timed
+
+    def __enter__(self):
+        self.saved = []
+        for label, owner, name in self.targets:
+            raw = vars(owner)[name]
+            fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+            wrapped = self._wrap(label, fn)
+            if isinstance(raw, staticmethod):
+                wrapped = staticmethod(wrapped)
+            self.saved.append((owner, name, raw))
+            setattr(owner, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, raw in self.saved:
+            setattr(owner, name, raw)
 
 
 def main():
@@ -54,7 +108,7 @@ def main():
         for step in chip_smoke.STEP_NAMES:
             method = getattr(orig, next(m for m in dir(orig)
                                         if m.startswith(step + "_")))
-            kw = dict(purity=0.8) if step == "step06" else {}
+            kw = chip_smoke.STEP_KWARGS.get(step, {})
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if traced:
@@ -65,10 +119,13 @@ def main():
                 method(**kw)
                 torch.cuda.synchronize()
             walls[step] = time.perf_counter() - t0
+        for sub in ("masks", "sources"):
+            shutil.rmtree(os.path.join(orig.outpath, sub), ignore_errors=True)
         orig.close_logfile()
         return walls
 
-    cold = run("profile_cold", traced=False)
+    with _StageTimer() as stages:
+        cold = run("profile_cold", traced=False)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         warm = run("profile_warm", traced=True)
@@ -110,10 +167,15 @@ def main():
               f"{s['device_busy_s']:13.4f}  {s['idle_share']:10.3f}")
         for op, ms in s["top_ops_ms"]:
             print(f"          {ms:9.3f} ms  {op[:80]}")
-    busy = sum(s["device_busy_s"] for s in steps.values())
-    total = sum(warm.values())
-    print(f"total   {sum(cold.values()):7.3f}  {total:7.3f}  {busy:13.4f}  "
-          f"{1.0 - busy / total:10.3f}")
+    for label, names in (("01-09", chip_smoke.STEP_NAMES[:9]),
+                         ("01-11", chip_smoke.STEP_NAMES)):
+        busy = sum(steps[n]["device_busy_s"] for n in names)
+        total = sum(warm[n] for n in names)
+        print(f"{label}   {sum(cold[n] for n in names):7.3f}  {total:7.3f}  "
+              f"{busy:13.4f}  {1.0 - busy / total:10.3f}")
+    print("step 11 host stages on the cold run (s, calls):")
+    for label, (secs, calls) in stages.sums.items():
+        print(f"  {secs:8.3f}  {calls:4d}  {label}")
     print("device ops by self device time (ms, count):")
     for key, us, n in ops:
         print(f"  {us / 1e3:9.3f}  {n:6d}  {key[:100]}")
@@ -121,7 +183,7 @@ def main():
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, f"profile_field_{mode}.json"), "w") as fh:
         json.dump(dict(card=card, precision=mode, cold=cold, warm=warm,
-                       steps=steps,
+                       steps=steps, step11_stages=stages.sums,
                        ops=[dict(name=k, device_ms=us / 1e3, count=n)
                             for k, us, n in ops]), fh, indent=1)
     prof.export_chrome_trace(
