@@ -22,18 +22,22 @@ Phases, each fatal on failure:
    REFSPEC and number of extensions, the L2 norms of its MUSE_TOT and
    REFSPEC spectra at rtol 1e-4;
 5. steps 01-11 on the synthetic 3681 x 100 x 200 field
-   (tools_torch/synthetic.make_field, seed 7), twice (cold, then warm),
-   with per-step walls, the peak device memory through step 09 and
-   through step 11 (within 2% of each other), and the number and bytes of
-   the source files; the sweep's launch counter must move; on the cold
-   run, step 08's line estimation of the first 16 Cat1 rows on the card
-   against the port's own on the CPU, every line max image of steps 10-11
-   bit for bit against ``ops.cutouts.line_max_images`` on the CPU from the
-   host copy of its detection cube, the spectra of the first 8 sources
-   against ``ops.spectra.source_spectra`` on the CPU (within 1e-5 of each
-   spectrum's largest magnitude), and the detection-cube cutout of the
-   first 4 source files exactly against the host cube's ``subcube``.  The
-   masks/ and sources/ folders (~1.5 GB) are deleted after each run;
+   (tools_torch/synthetic.make_field, seed 7, written to a FITS file
+   under build/chip_smoke), twice (cold, then warm), with per-step walls,
+   the peak device memory through step 09 and through step 11 (within 2%
+   of each other), the number and bytes of the source files, and step
+   11's closing session write (its wall, files and bytes, and step 11's
+   wall with and without it); the sweep's launch counter must move; on
+   the cold run, step 08's line estimation of the first 16 Cat1 rows on
+   the card against the port's own on the CPU, every line max image of
+   steps 10-11 bit for bit against ``ops.cutouts.line_max_images`` on the
+   CPU from the host copy of its detection cube, the spectra of the first
+   8 sources against ``ops.spectra.source_spectra`` on the CPU (within
+   1e-5 of each spectrum's largest magnitude), and the detection-cube
+   cutout of the first 4 source files exactly against the host cube's
+   ``subcube`` (the detection cubes come back from the session files at
+   their first fetch).  Each session folder (~4.3 GB) is deleted after
+   its checks;
 a. the spatial FSF kernel against its plain version at 3681 x 100 x 200,
    at ``highest`` and in bf16x3, with two weighted fields on a 256-channel
    cut, and on a 300 x 300 x 256 cut; CUDA-event times of the kernel, the
@@ -55,7 +59,17 @@ d. steps 01-07 of the minicube and of the field with
    must move; the minicube's Cat0/Cat1 equal the ``highest`` run's and
    its correl threshold is within 1e-3 of it; the field's Cat0/Cat1 are
    within one line of the ``highest`` run's and its correl threshold
-   within 0.005.
+   within 0.005;
+e. resume on the card: session B runs steps 01-04 of the field file and
+   writes itself; session C loads B's folder (``ORIGIN.load(...,
+   device="cuda")``) and runs steps 05-11 with the launch counters set to
+   0 just before: the float32 sweep must launch, on the cube_faint read
+   back from B's file; C's thresholds equal those of phase 5's cold run
+   (the uninterrupted reference), its Cat0 and Cat1 row for row (integer
+   columns exact, floats at rtol 1e-6), Cat2 and Cat3 likewise, and it
+   writes as many source and mask files.  Printed: B's write wall, C's
+   load wall, and the first-fetch seconds (FITS read, then upload) of
+   cube_faint and of the five step-05 cubes.
 
 In phases 4, 5 and d, steps 05-07 are then re-run with the plain versions
 in place of the kernels (after the step 08-11 checks: the re-run replaces
@@ -72,7 +86,8 @@ line of the float64 ARPACK oracle of step 04 (tools_torch/field_step04.py).
 Every launch counter is set to 0 just before a main-path run and read
 just after it: phase 5's cold run for the float32 sweep, phase d's field
 run for the spatial kernel and the bf16x3 sweep, phase c's entry calls for
-the spaxel-major sweeps.  The next-to-last line of stdout is a JSON record
+the spaxel-major sweeps, phase e's resumed steps 05-11 for the float32
+sweep again.  The next-to-last line of stdout is a JSON record
 of the kernels, the line before it the card's name and power limit, the
 last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
@@ -192,6 +207,13 @@ SPLIT_NEARER = 1.5
 # bf16x3 against highest (phase d)
 BF16X3_MINI_THRESH_TOL = 1e-3
 BF16X3_FIELD_THRESH_TOL = 0.005
+# phase e: the resumed session's catalog floats against the uninterrupted
+# run's (the same kernels on the same card and the same bits in between)
+RESUME_RTOL = 1e-6
+CATALOGS = ("Cat0", "Cat1", "Cat2", "Cat3_lines", "Cat3_sources")
+# the cube products of step 05, parked by step 11's closing write
+STEP05_CUBES = ("cube_correl", "cube_correl_min", "cube_profile",
+                "cube_local_max", "cube_local_min")
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, dense)
 PEAK_FP32 = 67e12       # FLOP/s on the CUDA cores
@@ -255,6 +277,45 @@ def reset_counts():
 
 def read_counts():
     return {name: getattr(owner, attr) for name, owner, attr in _counters()}
+
+
+class _Timer:
+    """Swaps ``owner.name`` for a wrapper that appends each call's wall
+    (device drained at both ends) to ``walls``."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.fn = getattr(owner, name)
+        self.walls = []
+
+    def __enter__(self):
+        import torch
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return self.fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.walls.append(time.perf_counter() - t0)
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def _session_files(outpath):
+    """(files, bytes) that a session write leaves in its folder: the
+    products, the parameter file, the instrument and O2 files (not the
+    log, masks/ or sources/)."""
+    names = [n for n in os.listdir(outpath)
+             if os.path.isfile(os.path.join(outpath, n))
+             and not n.endswith(".log")]
+    return len(names), sum(os.path.getsize(os.path.join(outpath, n))
+                           for n in names)
 
 
 def _time_cuda(fn, reps):
@@ -902,6 +963,7 @@ def phase_minicube(precision="highest", names=STEP_NAMES):
         out["sources"] = _minicube_source_checks(orig)
     _rerun_with_plain(orig, kwargs, precision)
     orig.close_logfile()
+    shutil.rmtree(orig.outpath, ignore_errors=True)
     out["walls"] = walls
     return out
 
@@ -928,16 +990,18 @@ def _field_checks(got, orig, lines):
 
 
 def phase_field(field, precision="highest", names=STEP_NAMES):
-    """Steps ``names`` of the field, cold then warm; the counters are set
-    to 0 just before the cold run and read just after it."""
+    """Steps ``names`` of the field file, cold then warm; the counters are
+    set to 0 just before the cold run and read just after it.  Returns the
+    runs, the cold run's launches and, for phase e, its thresholds,
+    catalogs and file counts before the plain re-run."""
     import torch
 
     from origin_tpu_torch.artifacts import masks
     from origin_tpu_torch.ops import spectra
     from origin_tpu_torch.pipeline.session import ORIGIN
 
-    cube, lines = field
-    out = {}
+    field_fn, lines = field
+    out, ref = {}, None
     runs = ("cold", "warm")
     sources = "step11" in names
     for run in runs:
@@ -947,11 +1011,12 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
         first = run == runs[0]
         if first:
             reset_counts()
-        orig = ORIGIN.init(cube, name=f"field_{precision}_{run}", path=WORK,
-                           loglevel="WARNING", device="cuda")
+        orig = ORIGIN.init(field_fn, name=f"field_{precision}_{run}",
+                           path=WORK, loglevel="WARNING", device="cuda")
         peaks = {}
         with _Recorder(masks, "line_max_images") as line_calls, \
-                _Recorder(spectra, "source_spectra") as spectra_calls:
+                _Recorder(spectra, "source_spectra") as spectra_calls, \
+                _Timer(ORIGIN, "write") as writes:
             walls = _run_steps(orig, STEP_KWARGS, names, peaks=peaks)
         if first:
             counts = read_counts()
@@ -968,8 +1033,18 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
                 f" s, steps 10-11 {walls['step10'] + walls['step11']:.3f} s;"
                 f" {nsrc} source files and {nmask} mask files, {nbytes} "
                 f"bytes; peak through step 09 {p09 / 2**30:.3f} GiB")
+            check(len(writes.walls) == 1, f"field {run}: step 11 ended in "
+                  "one session write")
+            wfiles, wbytes = _session_files(orig.outpath)
+            wall = writes.walls[0]
+            log(f"  {run}: step 11 {walls['step11']:.3f} s with its session "
+                f"write {wall:.3f} s ({walls['step11'] - wall:.3f} s "
+                f"without); the write: {wfiles} files, {wbytes} bytes, "
+                f"{wbytes / wall / 1e9:.3f} GB/s")
             out[run].update(mask_files=nmask, source_files=nsrc,
-                            source_bytes=nbytes, peak_step09_bytes=p09)
+                            source_bytes=nbytes, peak_step09_bytes=p09,
+                            write_s=wall, write_files=wfiles,
+                            write_bytes=wbytes)
             check(nsrc == len(orig.Cat3_sources) and nmask == 2 * nsrc,
                   f"field {run}: one source file and two mask files for "
                   f"each of the {len(orig.Cat3_sources)} Cat3 sources")
@@ -983,17 +1058,129 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
                 check(counts[name] > 0, f"the {precision} field run launched "
                       f"{name} ({counts[name]} launches)")
             _field_checks(out[run], orig, lines)
+            if sources:
+                ref = dict(threshold=orig.param["threshold"],
+                           threshold_std=orig.param["threshold_std"],
+                           files=(nmask, nsrc),
+                           **{n: getattr(orig, n) for n in CATALOGS})
             if "step08" in names:
                 out[run]["lines"] = _field_lines_checks(orig)
             if sources:
                 out[run]["sources"] = _field_source_checks(
                     orig, line_calls.calls, spectra_calls.calls)
             _rerun_with_plain(orig, STEP_KWARGS, precision)
-        for sub in ("masks", "sources"):
-            shutil.rmtree(os.path.join(orig.outpath, sub), ignore_errors=True)
         orig.close_logfile()
+        shutil.rmtree(orig.outpath, ignore_errors=True)
         del orig
-    return out, counts
+    return out, counts, ref
+
+
+# -- phase e ------------------------------------------------------------------
+def _same_rows(got, want, rtol):
+    """Row for row: every integer column exact, every float column at
+    ``rtol`` (NaN where the other is NaN)."""
+    import numpy as np
+
+    if got.colnames != want.colnames or len(got) != len(want):
+        return False
+    for col in want.colnames:
+        a, b = np.asarray(got[col]), np.asarray(want[col])
+        if b.dtype.kind == "f":
+            if not np.allclose(a, b, rtol=rtol, atol=0, equal_nan=True):
+                return False
+        elif not np.array_equal(a, b):
+            return False
+    return True
+
+
+def _first_fetches(orig, names):
+    """Each product's first fetch after its park: (FITS read s, upload s),
+    one product at a time, the device drained at both ends."""
+    from origin_tpu_torch.pipeline import products
+
+    fmt = products.FORMATS["cube"]
+    out, reads = {}, []
+
+    def timed_load(path):
+        t0 = time.perf_counter()
+        try:
+            return fmt.load(path)
+        finally:
+            reads.append(time.perf_counter() - t0)
+
+    products.FORMATS["cube"] = fmt._replace(load=timed_load)
+    try:
+        for name in names:
+            wall = sync_wall(lambda: getattr(orig, name))
+            out[name] = (reads[-1], wall - reads[-1])
+    finally:
+        products.FORMATS["cube"] = fmt
+    return out
+
+
+def phase_resume(field, ref):
+    """Session B: steps 01-04 of the field file, then write(); session C:
+    load(device="cuda"), steps 05-11 with the counters set to 0 just
+    before, held against phase 5's cold run."""
+    import torch
+
+    from origin_tpu_torch.pipeline.products import Parked
+    from origin_tpu_torch.pipeline.session import ORIGIN
+
+    field_fn, _ = field
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = ORIGIN.init(field_fn, name="resume", path=WORK, loglevel="WARNING",
+                    device="cuda")
+    walls_b = _run_steps(b, STEP_KWARGS, STEP_NAMES[:4])
+    write_s = sync_wall(b.write)
+    folder = b.outpath
+    files, nbytes = _session_files(folder)
+    b.close_logfile()
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  B: steps 01-04 {sum(walls_b.values()):.3f} s; write "
+        f"{write_s:.3f} s ({files} files, {nbytes} bytes, "
+        f"{nbytes / write_s / 1e9:.3f} GB/s)")
+
+    t0 = time.perf_counter()
+    c = ORIGIN.load(folder, device="cuda")
+    load_s = time.perf_counter() - t0
+    check(c.engine.device.type == "cuda" and isinstance(
+        c.steps["compute_greedy_PCA"].store.peek("cube_faint"), Parked),
+        "C loaded on cuda with cube_faint parked in B's file")
+    fetch = _first_fetches(c, ("cube_faint",))
+    reset_counts()
+    walls_c = _run_steps(c, STEP_KWARGS, STEP_NAMES[4:])
+    counts = read_counts()
+    log(f"  C: load {load_s:.3f} s; steps 05-11 "
+        + " ".join(f"{k} {v:.3f}s" for k, v in walls_c.items())
+        + f"  total {sum(walls_c.values()):.3f}s")
+    log(f"  launches in C's steps 05-11: {counts}")
+    check(counts["toeplitz_sweep"] > 0, "C's step 05 launched toeplitz_sweep "
+          f"({counts['toeplitz_sweep']} launches) on the cube_faint read "
+          "back from B's file")
+    check(c.param["threshold"] == ref["threshold"]
+          and c.param["threshold_std"] == ref["threshold_std"],
+          f"C's thresholds {c.param['threshold']:.6f} / "
+          f"{c.param['threshold_std']:.6f} equal the uninterrupted run's")
+    for name in CATALOGS:
+        got, want = getattr(c, name), ref[name]
+        check(_same_rows(got, want, RESUME_RTOL), f"C's {name} ({len(got)} "
+              "rows) equals the uninterrupted run's row for row (integers "
+              f"exact, floats at rtol {RESUME_RTOL:g})")
+    nmask, nsrc, _ = _source_files(c)
+    check((nmask, nsrc) == ref["files"], f"C wrote {nsrc} source and "
+          f"{nmask} mask files, as the uninterrupted run")
+    fetch.update(_first_fetches(c, STEP05_CUBES))
+    log("  first fetches (FITS read s, upload s): " + ", ".join(
+        f"{k} {r:.3f}/{u:.3f}" for k, (r, u) in fetch.items()))
+    c.close_logfile()
+    shutil.rmtree(folder, ignore_errors=True)
+    return dict(walls_b=walls_b, write_s=write_s, write_files=files,
+                write_bytes=nbytes, load_s=load_s, walls_c=walls_c,
+                launches=counts, first_fetch_s=fetch)
 
 
 # -- phase a ------------------------------------------------------------------
@@ -1230,7 +1417,7 @@ def phase_bf16x3(field, highest):
         log("  minicube:")
         mini = phase_minicube("bf16x3", FRONT_STEPS)
         log("  field:")
-        runs, counts = phase_field(field, "bf16x3", FRONT_STEPS)
+        runs, counts, _ = phase_field(field, "bf16x3", FRONT_STEPS)
     finally:
         if prev is None:
             os.environ.pop("ORIGIN_TPU_PRECISION")
@@ -1311,9 +1498,13 @@ def main():
     res["minicube"] = phase_minicube()
     log("[5] field %dx%dx%d steps 01-11 on cuda" % FIELD)
     t0 = time.perf_counter()
-    field = make_field(*FIELD, seed=7)
-    log(f"  field {FIELD} generated in {time.perf_counter() - t0:.1f} s")
-    res["field"], _ = phase_field(field)
+    cube, lines = make_field(*FIELD, seed=7)
+    field = (os.path.join(WORK, "field.fits"), lines)
+    cube.write(field[0])
+    del cube
+    log(f"  field {FIELD} generated and written to {field[0]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res["field"], _, reference = phase_field(field)
     log("[a] spatial FSF kernel vs plain")
     res["spatial"] = phase_spatial()
     log("[b] bf16x3 sweep kernel vs plain at %dx%dx%d" % FIELD)
@@ -1322,6 +1513,8 @@ def main():
     res["spaxel_major"] = phase_spaxel_major()
     log("[d] minicube and field steps 01-07 in bf16x3")
     res["bf16x3"] = phase_bf16x3(field, res)
+    log("[e] resume on cuda: field steps 01-04, write, load, steps 05-11")
+    res["resume"] = phase_resume(field, reference)
     jaxed = sorted(m for m in sys.modules if m.split(".")[0] in
                    ("jax", "origin_tpu"))
     check(not jaxed, "nothing of JAX or of the JAX package was imported "

@@ -34,16 +34,14 @@ logger = logging.getLogger(__name__)
 
 
 def _spectra_dict(spectra_fits_filename):
-    """The per-line spectra: the session's dict as given, or {} when the
-    file does not exist.  Reading spectra.fits comes with session I/O."""
+    """The per-line spectra: the session's dict as given, the spectra.fits
+    file read, or {} when the file does not exist."""
     if isinstance(spectra_fits_filename, dict):
         return spectra_fits_filename
     if os.path.exists(spectra_fits_filename):
-        raise NotImplementedError(
-            "reading spectra.fits is not ported to origin_tpu_torch yet "
-            "(ROADMAP.md, section 1: 'Session I/O'); pass the session's "
-            "spectra dict"
-        )
+        from ..pipeline.spectra_io import load_spectra
+
+        return load_spectra(spectra_fits_filename)
     return {}
 
 

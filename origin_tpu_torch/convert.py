@@ -12,6 +12,11 @@ the raw cube, its variance, the PSF and Cat1, which the session already
 holds, and step 09 works on the catalogs.  Steps 10-11 have no parameters
 either: they read Cat3, the detection cubes, ``segmap_label`` /
 ``segmap_merged``, the raw cube and the FSF, all held by the session.
+
+Loading a JAX session written in its dense form
+(:meth:`origin_tpu_torch.pipeline.session.ORIGIN.load`) is the same
+crossing through files, with the same dtypes: float32 cubes, and the
+profile index cube in uint8 (up to 255 profiles) or int16.
 """
 
 from __future__ import annotations

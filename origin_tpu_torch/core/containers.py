@@ -71,6 +71,9 @@ class _Base:
         self._data_arr = val
         # replaced content: a stamped derived-mask shortcut is stale
         self._mask_is_nonfinite = False
+        # content generation: lets ProductStore.park_dirty distinguish a
+        # replaced product from a plain re-read on a resumed session
+        self._gen = getattr(self, "_gen", 0) + 1
 
     @property
     def shape(self):

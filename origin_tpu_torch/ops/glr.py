@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .prec import split_and_dot
+from .prec import split_and_dot, sqrt_rn
 
 __all__ = [
     "prepare_profiles",
@@ -256,7 +256,7 @@ def toeplitz_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
             den = d3(nw, sp(t_den[k])).reshape(s1 - s0, nb * block)
             cp = num[:, :nz]
             norm = den[:, :nz]
-            norm = torch.where(norm <= 0, float("inf"), torch.sqrt(norm))
+            norm = torch.where(norm <= 0, float("inf"), sqrt_rn(norm))
             t = cp / norm
             arg = torch.where(t > best, torch.tensor(k, dtype=pdtype,
                                                      device=t.device), arg)

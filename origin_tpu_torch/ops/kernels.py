@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .glr import toeplitz_sweep
+from .prec import sqrt_rn
 from .sweep import check_tensor, launch_sweep, sweep_taps
 
 __all__ = ["matched_filter_spectral", "banded_matmul_spectral",
@@ -67,7 +68,7 @@ def matched_filter_plain(x, n, prof, prof2, centers):
             lo = left + j - c  # out[z] reads in[z + j - c]
             num = num + w * xp[:, lo:lo + nz]
             den = den + w2 * np_[:, lo:lo + nz]
-        norm = torch.where(den <= 0, float("inf"), torch.sqrt(den))
+        norm = torch.where(den <= 0, float("inf"), sqrt_rn(den))
         t = num / norm
         pidx = torch.where(t > correl, k, pidx)
         correl = torch.maximum(correl, t)

@@ -27,6 +27,7 @@ import torch
 from ..device import resolve_device
 from .dct import dctmat
 from .pca import rank1_left_vectors
+from .prec import sqrt_rn
 
 __all__ = ["ls_deconv_wgt", "method_pca_wgt", "gather_windows",
            "grid_analysis_batch", "estimation_line_arrays"]
@@ -45,7 +46,7 @@ def ls_deconv_wgt(data, var, psf):
     v = var.flatten(-2)
     d = data.flatten(-2)
     varest = 1.0 / torch.sum(p * p / v, dim=-1)
-    deconv = torch.sum(p * d / torch.sqrt(v), dim=-1) * varest
+    deconv = torch.sum(p * d / sqrt_rn(v), dim=-1) * varest
     return deconv, varest
 
 
@@ -63,7 +64,7 @@ def method_pca_wgt(data, var, psf, d0):
     Returns (estimated_line (B, nl), estimated_var (B, nl)).
     """
     b, nl = data.shape[:2]
-    sqv = torch.sqrt(var)
+    sqv = sqrt_rn(var)
     data_std = data / sqv
     x_std = data_std.reshape(b, nl, -1)
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["PRECISIONS", "check_precision", "split_bf16", "dot3",
-           "split_and_dot"]
+           "split_and_dot", "sqrt_rn"]
 
 PRECISIONS = ("highest", "bf16x3")
 
@@ -50,3 +50,19 @@ def split_and_dot(precision):
     if check_precision(precision) == "bf16x3":
         return split_bf16, dot3
     return (lambda a: a), torch.matmul
+
+
+def sqrt_rn(x):
+    """Correctly rounded square root of a float32 tensor.
+
+    torch's float32 ``sqrt`` on the CPU is not correctly rounded (about
+    0.2% of a cube's values differ from numpy's in the last bit), and
+    its bits vary from one process to the next: step 01's ``cube_std``
+    came out another way in 2 of 18 runs of the minicube, which moved a
+    detection across the threshold.  A float64 square root rounded to
+    float32 is the correctly rounded one, which CUDA's float32 ``sqrt``
+    already gives, so the CPU then computes the card's bits.
+    """
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)

@@ -12,6 +12,8 @@ import torch
 from scipy import stats as sstats
 from scipy.optimize import curve_fit
 
+from .prec import sqrt_rn
+
 __all__ = [
     "o2test",
     "standardize",
@@ -45,7 +47,7 @@ def standardize(cube_raw, cont, var, mask, with_mean=False):
     data = cube_raw - cont
     ngood = torch.clamp(good.sum(dim=(1, 2)), min=1)
     mean_z = torch.where(good, data, 0.0).sum(dim=(1, 2)) / ngood
-    std = torch.sqrt(var)
+    std = sqrt_rn(var)
     data = (data - mean_z[:, None, None]) / std
     data = torch.where(good & torch.isfinite(data), data, 0.0)
     cont_std = cont / std

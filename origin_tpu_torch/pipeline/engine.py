@@ -39,7 +39,7 @@ from ..ops.spatial import spatial_fsf, spatial_kernel_admits
 from ..ops.spectra import batched_source_spectra
 from ..ops.stats import o2test, standardize
 from ..ops.sweep import spectral_sweep
-from .products import TensorCube
+from .products import Parked, TensorCube
 
 __all__ = ["TorchEngine"]
 
@@ -177,9 +177,12 @@ class TorchEngine:
                 raise KeyError(f"load_state: unknown state {name!r}")
 
     def get(self, name):
-        """Device tensor of a cube-sized session product."""
+        """Device tensor of a cube-sized session product (a parked one is
+        uploaded at its first fetch)."""
         owner = self.orig._product_owner.get(name)
         obj = owner.store.peek(name) if owner is not None else None
+        if isinstance(obj, Parked):
+            obj = owner.store.fetch(name)
         if not isinstance(obj, TensorCube):
             raise KeyError(f"no cube product {name!r} in this session")
         return obj.tensor

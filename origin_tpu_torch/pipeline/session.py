@@ -1,16 +1,22 @@
 """The ORIGIN session for the torch port: steps 01-11 on an explicit device.
 
-Port of the step wiring of :mod:`origin_tpu.pipeline.session`
-(``ORIGIN.init`` and ``step01_preprocessing`` .. ``step11_save_sources``).
-Session write/load are not ported yet and raise
-:class:`NotImplementedError` naming their ROADMAP.md item.
+Port of :mod:`origin_tpu.pipeline.session`: ``ORIGIN.init``,
+``step01_preprocessing`` .. ``step11_save_sources``, and the checkpoint
+(``write``, ``load`` and its fork) in the JAX package's dense session
+format, so that a session written by either package loads in the other
+(the JAX package's with ``ORIGIN_TPU_STORE_RECIPES=0``,
+``ORIGIN_TPU_STORE_SPARSE=0`` and ``ORIGIN_TPU_STORE_INT16=0``).  The
+reference dialect is not ported yet and raises
+:class:`NotImplementedError` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import glob
 import inspect
 import logging
 import os
+import shutil
 import sys
 from collections import OrderedDict
 from functools import cached_property
@@ -19,12 +25,17 @@ from logging.handlers import RotatingFileHandler
 import numpy as np
 
 from .. import fitsio
-from ..core.containers import Cube
+from ..core.containers import Cube, Image
 from ..core.fsf import FieldsMap, read_fsf_from_header
-from ..core.profiles import default_dictionary_path, load_dictionary
+from ..core.profiles import (
+    DICO_3FWHM, DICO_FWHM_2_12, default_dictionary_path, load_dictionary,
+)
+from ..device import resolve_device
 from ..version import version as __version__
 from . import steps as steps_mod
 from .engine import TorchEngine
+from .params import dump_params
+from .steps import Status
 
 __all__ = ["ORIGIN"]
 
@@ -32,15 +43,15 @@ LOGGER_NAME = "origin_tpu_torch"
 
 #: ROADMAP.md section 1 items that port what is not here yet
 _LATER = {
-    "write": "Session I/O",
-    "load": "Session I/O",
+    "write(compat='reference')": "Session I/O",
+    "the reference dialect's parameter file": "Session I/O",
 }
 
 
 def _not_ported(name):
     return NotImplementedError(
         f"{name} is not ported to origin_tpu_torch yet (ROADMAP.md, "
-        f"section 1: '{_LATER[name]}'); use origin_tpu for it"
+        f"section 1: '{_LATER[name]}', item 1c); use origin_tpu for it"
     )
 
 
@@ -67,18 +78,23 @@ class ORIGIN:
     Composed of the raw cube + variance, a dictionary of spectral profiles
     and the FSF model; drives steps 01-11 (``step01_preprocessing`` ..
     ``step11_save_sources``) on ``device`` (``"cuda"``, or ``"cpu"`` when
-    asked for).
+    asked for).  ``param`` is the parameter tree of a loaded session.
     """
 
     def __init__(self, filename, device="cuda", name="origin", path=".",
                  loglevel="DEBUG", fieldmap=None, profiles=None, PSF=None,
                  LBDA_FWHM_PSF=None, FWHM_PSF=None, PSF_size=25,
-                 imawhite=None, wfields=None):
+                 param=None, imawhite=None, wfields=None):
         self.path = path
         self.name = name
         self.outpath = os.path.join(path, name)
-        self.param = {}
+        self.param = param or {}
         self.file_handler = None
+        # False until THIS session has written its instrument files: a
+        # fresh session initialized into a reused directory must
+        # overwrite another dataset's cube_psf/ima_white/wfield files,
+        # not adopt them (loaded sessions own the existing files)
+        self._aux_synced = param is not None
         # resolve the device first: a missing GPU fails before any I/O
         self.engine = TorchEngine(self, device)
         os.makedirs(self.outpath, exist_ok=True)
@@ -87,6 +103,8 @@ class ORIGIN:
         self.logger = logging.getLogger(LOGGER_NAME)
         self._setup_logfile(self.logger)
         self.param["loglevel"] = loglevel
+        # the JAX package's load reads it; the port logs without color
+        self.param["logcolor"] = False
         try:
             self._init_session(filename, fieldmap, profiles, PSF,
                                LBDA_FWHM_PSF, FWHM_PSF, PSF_size, imawhite,
@@ -138,6 +156,7 @@ class ORIGIN:
 
         self.ima_white = imawhite if imawhite else self.cube.mean(axis=0)
         self.testO2, self.histO2, self.binO2 = None, None, None
+        self._o2_files_stale = True
         self.logger.info("Step 00 finished")
 
     def __getattr__(self, name):
@@ -189,10 +208,192 @@ class ORIGIN:
 
     @classmethod
     def load(cls, folder, newname=None, loglevel=None, device="cuda"):
-        raise _not_ported("load")
+        """Restore a saved session, written by this package or by the JAX
+        package in its dense form; optionally fork it under a new name.
 
+        ``device`` is explicit, as for :meth:`init`.  The cube products
+        come back on it at their first fetch.
+        """
+        import yaml
+
+        resolve_device(device)  # a missing GPU fails before any I/O
+        path = os.path.dirname(os.path.abspath(folder))
+        name = os.path.basename(folder)
+
+        with open(f"{folder}/{name}.yaml") as stream:
+            text = stream.read()
+        if "!!python/" in text:
+            raise _not_ported("the reference dialect's parameter file")
+        param = yaml.safe_load(text)
+        if param.get("cubename") is None:
+            raise ValueError(
+                f"session {folder} was made from an in-memory Cube "
+                "(cubename: null): it cannot be loaded without its cube file"
+            )
+
+        # convert step status strings back into enums
+        for val in param.values():
+            if isinstance(val, dict) and "status" in val:
+                val["status"] = Status[val["status"]]
+
+        # a session moved from another machine, or written by the JAX
+        # package, may name a profile dictionary that is not here; the
+        # two shipped dictionaries are also shipped with the port
+        prof = param.get("profiles")
+        if prof and not os.path.isfile(str(prof)):
+            base = os.path.basename(str(prof))
+            if base in (DICO_3FWHM, DICO_FWHM_2_12):
+                packaged = default_dictionary_path(base)
+                logging.getLogger(LOGGER_NAME).warning(
+                    "profile dictionary %s not found; using the packaged %s",
+                    prof, packaged,
+                )
+                param["profiles"] = packaged
+
+        FWHM_PSF = (
+            np.asarray(param["FWHM PSF"]) if "FWHM PSF" in param else None
+        )
+        LBDA_FWHM_PSF = (
+            np.asarray(param["LBDA FWHM PSF"])
+            if "LBDA FWHM PSF" in param else None
+        )
+
+        if param.get("PSF") and os.path.isfile(str(param["PSF"])):
+            PSF = param["PSF"]
+        elif os.path.isfile("%s/cube_psf.fits" % folder):
+            PSF = "%s/cube_psf.fits" % folder
+        else:
+            files = glob.glob("%s/cube_psf_*.fits" % folder)
+            PSF = (
+                None if len(files) == 0
+                else files[0] if len(files) == 1 else sorted(files)
+            )
+        wfield_files = sorted(glob.glob("%s/wfield_*.fits" % folder))
+        wfields = wfield_files if wfield_files else None
+
+        ima_white = (
+            Image("%s/ima_white.fits" % folder)
+            if os.path.isfile("%s/ima_white.fits" % folder) else None
+        )
+
+        if newname is not None:
+            shutil.copytree(os.path.join(path, name),
+                            os.path.join(path, newname))
+            name = newname
+
+        loglevel = loglevel if loglevel is not None else param["loglevel"]
+
+        obj = cls(
+            param["cubename"], device=device, path=path, name=name,
+            param=param, imawhite=ima_white, loglevel=loglevel,
+            fieldmap=param.get("fieldmap"), wfields=wfields,
+            profiles=param["profiles"], PSF=PSF, FWHM_PSF=FWHM_PSF,
+            LBDA_FWHM_PSF=LBDA_FWHM_PSF, PSF_size=param.get("PSF_size", 25),
+        )
+
+        for step in obj.steps.values():
+            step.load(obj.outpath)
+
+        nb_areas = param.get("nbareas")
+        if nb_areas is not None:
+            for attr in ("testO2", "histO2", "binO2"):
+                if os.path.isfile("%s/%s_1.txt" % (folder, attr)):
+                    setattr(obj, attr, [
+                        np.loadtxt("%s/%s_%d.txt" % (folder, attr, a), ndmin=1)
+                        for a in range(1, nb_areas + 1)
+                    ])
+                    obj._o2_files_stale = False  # just read from those files
+        return obj
+
+    # -- checkpointing -------------------------------------------------------
     def write(self, path=None, erase=False, compat=None):
-        raise _not_ported("write")
+        """Dump the whole session (every step product + parameters) into
+        ``<path or self.path>/<self.name>``.
+
+        ``path`` moves the session there (copying its folder); ``erase``
+        deletes the folder first.  Every cube product is written as a
+        dense file of its host copy, and parking it frees its device
+        memory.  ``compat='reference'`` (the reference package's dialect)
+        is not ported yet.
+        """
+        if compat is not None:
+            if compat != "reference":
+                raise ValueError(f"unknown compat dialect: {compat!r}")
+            raise _not_ported("write(compat='reference')")
+        self.logger.info("Writing...")
+        if path is not None and path != self.path:
+            if not os.path.exists(path):
+                raise ValueError(f"path does not exist: {path}")
+            self.path = path
+            outpath = os.path.join(path, self.name)
+            shutil.copytree(self.outpath, outpath)
+            for step in self.steps.values():
+                step.store.move(self.outpath, outpath)
+            self.outpath = outpath
+            self.close_logfile()
+            self._setup_logfile(self.logger)
+        reopen_log = False
+        if erase:
+            # the parked products live in the folder: read them back
+            # first, so that the dump below writes every product again
+            # (the JAX package loses them here)
+            for step in self.steps.values():
+                step.store.hold_all()
+            # the rotating-file handler holds <name>.log inside the tree:
+            # close it before the rmtree and reopen it after the directory
+            # is recreated
+            if self.file_handler is not None:
+                self.close_logfile()
+                reopen_log = True
+            shutil.rmtree(self.outpath)
+            self._o2_files_stale = True
+        os.makedirs(self.outpath, exist_ok=True)
+        if reopen_log:
+            self._setup_logfile(self.logger)
+
+        # the instrument files never change within a session: write them
+        # only when they are not already on disk
+        def _write_once(obj, fname):
+            target = os.path.join(self.outpath, fname)
+            if not self._aux_synced or not os.path.isfile(target):
+                obj.write(target)
+
+        if isinstance(self.PSF, list):
+            for i, psf in enumerate(self.PSF):
+                _write_once(Cube(data=psf, mask=False),
+                            "cube_psf_%02d.fits" % i)
+        else:
+            _write_once(Cube(data=self.PSF, mask=False), "cube_psf.fits")
+        if self.wfields is not None:
+            for i, wfield in enumerate(self.wfields):
+                _write_once(Image(data=np.asarray(wfield), mask=False),
+                            "wfield_%02d.fits" % i)
+        if self.ima_white is not None:
+            _write_once(self.ima_white, "ima_white.fits")
+        self._aux_synced = True  # subsequent write()s skip the rewrites
+
+        for step in self.steps.values():
+            step.dump(self.outpath)
+
+        with open(f"{self.outpath}/{self.name}.yaml", "w") as stream:
+            stream.write(dump_params(self.param))
+
+        # per-area O2 diagnostics: rewritten only when step 03 recomputed
+        # them
+        if self.nbAreas is not None and self._o2_files_stale:
+            wrote = False
+            for attr in ("testO2", "histO2", "binO2"):
+                values = getattr(self, attr)
+                if values is not None:
+                    wrote = True
+                    for area in range(1, self.nbAreas + 1):
+                        np.savetxt(
+                            "%s/%s_%d.txt" % (self.outpath, attr, area),
+                            values[area - 1],
+                        )
+            if wrote:
+                self._o2_files_stale = False
+        self.logger.info("Current session saved in %s", self.outpath)
 
     # -- logging -------------------------------------------------------------
     def _setup_logfile(self, logger):

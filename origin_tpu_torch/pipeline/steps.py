@@ -2,9 +2,12 @@
 
 Port of :mod:`origin_tpu.pipeline.steps`: the same parameters, products
 and host logic, with the cube-sized math on the session's torch device
-(:class:`.engine.TorchEngine`).  The JAX package's TPU-link machinery
-(device drops, prefetches, background parking, the lazy re-upload of a
-resumed session's detection cubes) is not ported.
+(:class:`.engine.TorchEngine`).  A resumed session's parked cube products
+come back on the session's device at their first fetch
+(:meth:`Step._upload_cube`), so its steps take the same device paths as an
+uninterrupted run.  The JAX package's TPU-link machinery (device drops,
+prefetches, background parking, the lazy re-upload of a resumed session's
+detection cubes) is not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from datetime import datetime
 from enum import Enum, auto
 
 import numpy as np
+import torch
 from scipy import ndimage as ndi
 
 from ..artifacts.masks import _fetch_line_images, create_masks
@@ -67,11 +71,16 @@ __all__ = [
 
 
 class Status(Enum):
-    """Lifecycle of a step within a session: NOTRUN -> RUN, or FAILED if
-    ``run`` raised."""
+    """Lifecycle of a step within a session.
+
+    NOTRUN -> RUN (computed, products live in memory) -> DUMPED (products
+    parked in the session directory); FAILED if ``run`` raised.  Only the
+    member *names* are persisted in the session parameter file.
+    """
 
     NOTRUN = auto()
     RUN = auto()
+    DUMPED = auto()
     FAILED = auto()
 
 
@@ -82,7 +91,8 @@ class Step:
     kind) and ``depends_on``, and implement ``run(orig, **params)``.
     Calling the step records its effective parameters, checks its
     dependencies, times the run and tracks a :class:`Status`.  Products are
-    published with :meth:`put` and read back as attributes.
+    published with :meth:`put` and read back as attributes, whether live
+    or parked on disk.
     """
 
     name = ""
@@ -96,6 +106,7 @@ class Step:
         self.idx = idx
         self.method_name = f"step{idx:02d}_{self.name}"
         self.store = ProductStore(self.products)
+        self.store.upload = self._upload_cube
         meta = param.setdefault(self.name, {})
         meta.setdefault("stepidx", idx)
         self.meta = meta
@@ -106,10 +117,18 @@ class Step:
             f"<{type(self).__name__} [{self.idx:02d}] {self.status.name}>"
         )
 
+    def _upload_cube(self, cube):
+        """A cube product read back from its session file, on the
+        session's device (its first fetch)."""
+        tensor = torch.from_numpy(np.ascontiguousarray(cube.data))
+        return TensorCube(tensor.to(self.orig.engine.device),
+                          wcs=self.orig.wcs, wave=self.orig.wave)
+
     def __getattr__(self, name):
+        # products read as attributes, materializing parked files on demand
         store = self.__dict__.get("store")
         if store is not None and name in store:
-            return store.peek(name)
+            return store.fetch(name)
         raise AttributeError(
             f"{type(self).__name__} has no attribute {name!r}"
         )
@@ -144,7 +163,7 @@ class Step:
     def _check_dependencies(self):
         for req in self.depends_on:
             dep = self.orig.steps[req]
-            if dep.status is not Status.RUN:
+            if dep.status not in (Status.RUN, Status.DUMPED):
                 raise RuntimeError(
                     f"{self.method_name} requires {dep.method_name} "
                     f"(status: {dep.status.name})"
@@ -152,7 +171,7 @@ class Step:
 
     def __call__(self, *args, **kwargs):
         self.logger.info("Step %02d - %s", self.idx, self.desc)
-        t0 = time.perf_counter()
+        self._t0 = t0 = time.perf_counter()
         self._record_params(args, kwargs)
         self._check_dependencies()
         try:
@@ -177,6 +196,22 @@ class Step:
     def store_image(self, name, data, **kwargs):
         self.put(name, Image(data=data, wcs=self.orig.wcs, mask=False,
                              copy=False, **kwargs))
+
+    def dump(self, outpath):
+        """Park every live product in the session directory."""
+        if self.status is Status.RUN:
+            self.logger.debug("parking %s products", self.method_name)
+            self.store.park_all(outpath)
+            self.status = Status.DUMPED
+        elif self.status is Status.DUMPED:
+            # already-dumped step on a resumed session: persist exactly
+            # the products whose content was replaced since their fetch
+            self.store.park_dirty(outpath)
+
+    def load(self, outpath):
+        """Point the products at their session files (read on access)."""
+        if self.status is Status.DUMPED:
+            self.store.point_at(outpath)
 
 
 class Preprocessing(Step):
@@ -328,6 +363,7 @@ class ComputePCAThreshold(Step):
                 area, mea, std, thres,
             )
         (orig.testO2, orig.histO2, orig.binO2, thres, mea, std) = zip(*results)
+        orig._o2_files_stale = True  # write() must re-serialize them
         self.put("thresO2", np.asarray(thres))
         self.put("meaO2", np.asarray(mea))
         self.put("stdO2", np.asarray(std))
@@ -736,9 +772,8 @@ class SaveSources(Step):
     Parameters: version (required), path, n_jobs, author, nb_fwhm,
     expmap_filename, overwrite.
 
-    The JAX package's step ends by writing the session the sources
-    reference; the port has no session write yet (ROADMAP.md, section 1,
-    'Session I/O'), so this step writes the source files only.
+    The step ends by writing the session that the sources reference
+    (``orig.write()``; its ``cube_correl.fits`` and ``cube_std.fits``).
     """
 
     name = "save_sources"
@@ -807,6 +842,17 @@ class SaveSources(Step):
             spectra_pre=spectra_pre,
             line_images_pre=line_images_pre,
         )
+
+        # checkpoint the session the sources reference (the reference
+        # writes first, source_creation.py:439; writing last is equivalent
+        # on disk).  Stamp this step's own status/meta first: __call__
+        # only records them after run() returns, which would leave the
+        # written session showing save_sources as NOTRUN on reload
+        self.status = Status.RUN
+        self.meta["execution_date"] = datetime.now().isoformat()
+        if getattr(self, "_t0", None) is not None:
+            self.meta["runtime"] = time.perf_counter() - self._t0
+        orig.write()
 
     @staticmethod
     def _device_source_artifacts(orig, nb_fwhm):

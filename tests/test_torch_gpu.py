@@ -516,3 +516,53 @@ def test_cuda_tensor_cube_subcube_matches_cpu(cuda, size):
         for name in ("data", "mask"):
             np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
         assert tuple(a.wcs.crpix) == tuple(b.wcs.crpix)
+
+
+@pytest.mark.gpu
+def test_cuda_session_resumes_after_step04(cuda, tmp_path):
+    """The minicube written after step 04 on the card and loaded there:
+    step 05 launches the sweep kernel on the cube_faint read back from the
+    session file, and Cat0/Cat1 and the thresholds equal those of a run
+    that never stopped."""
+    from origin_tpu_torch.pipeline.products import TensorCube
+    from origin_tpu_torch.pipeline.session import ORIGIN
+    from tools_torch.synthetic import make_minicube, make_segmap
+
+    cube_fn, seg_fn = str(tmp_path / "mini.fits"), str(tmp_path / "seg.fits")
+    make_minicube(cube_fn)
+    make_segmap(seg_fn)
+
+    def steps(orig, which):
+        calls = dict(
+            step01=lambda: orig.step01_preprocessing(),
+            step02=lambda: orig.step02_areas(minsize=30, maxsize=60),
+            step03=lambda: orig.step03_compute_PCA_threshold(),
+            step04=lambda: orig.step04_compute_greedy_PCA(),
+            step05=lambda: orig.step05_compute_TGLR(),
+            step06=lambda: orig.step06_compute_purity_threshold(purity=0.8),
+            step07=lambda: orig.step07_detection(segmap=seg_fn))
+        for name in which:
+            calls[name]()
+        return orig
+
+    kw = dict(path=str(tmp_path), loglevel="WARNING", device="cuda")
+    front, back = ("step01", "step02", "step03", "step04"), (
+        "step05", "step06", "step07")
+    full = steps(ORIGIN.init(cube_fn, name="full", **kw), front + back)
+    steps(ORIGIN.init(cube_fn, name="b", **kw), front).write()
+    resumed = ORIGIN.load(str(tmp_path / "b"), device="cuda")
+    spectral_sweep.launches = 0
+    steps(resumed, back)
+    assert spectral_sweep.launches > 0
+    faint = resumed.steps["compute_greedy_PCA"].store.peek("cube_faint")
+    assert isinstance(faint, TensorCube) and faint.tensor.is_cuda
+    for key in ("threshold", "threshold_std"):
+        assert resumed.param[key] == full.param[key]
+    for name in ("Cat0", "Cat1"):
+        a, b = getattr(resumed, name), getattr(full, name)
+        assert a.colnames == b.colnames and len(a) == len(b) > 0
+        for col in a.colnames:
+            np.testing.assert_array_equal(np.asarray(a[col]),
+                                          np.asarray(b[col]), err_msg=col)
+    for o in (full, resumed):
+        o.close_logfile()

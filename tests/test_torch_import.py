@@ -16,10 +16,16 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(REPO, "tests")
+# the cube products of steps 01, 04 and 05, one session file each
+CUBE_PRODUCTS = ("cube_std", "cont_dct", "cube_std_local_min",
+                 "cube_std_local_max", "cube_faint", "cube_correl",
+                 "cube_correl_min", "cube_profile", "cube_local_min",
+                 "cube_local_max")
 
 
 def test_port_runs_without_jax_or_yaml(tmp_path):
-    # steps 01-11; the card's machine has no joblib or tqdm
+    # steps 01-11, step 11 ending in the session write; the card's machine
+    # has no joblib or tqdm
     code = textwrap.dedent(f"""
         import os, sys
         for name in ("jax", "yaml", "joblib", "tqdm", "origin_tpu"):
@@ -32,6 +38,8 @@ def test_port_runs_without_jax_or_yaml(tmp_path):
         import origin_tpu_torch.ops.build, origin_tpu_torch.ops.kernels
         import origin_tpu_torch.ops.spatial
         from tools_torch.synthetic import make_minicube, make_segmap
+
+        CUBE_PRODUCTS = {CUBE_PRODUCTS!r}
 
         path = {str(tmp_path / "mini.fits")!r}
         seg = {str(tmp_path / "seg.fits")!r}
@@ -63,6 +71,9 @@ def test_port_runs_without_jax_or_yaml(tmp_path):
                 counts["files"] = tuple(
                     len(os.listdir(os.path.join(orig.outpath, d)))
                     for d in ("masks", "sources"))
+                for fn in (orig.name + ".yaml", "cube_psf.fits",
+                           *(n + ".fits" for n in CUBE_PRODUCTS)):
+                    assert os.path.isfile(os.path.join(orig.outpath, fn)), fn
             orig.close_logfile()
         assert counts == {{"highest": (15, 14), "bf16x3": (15, 14),
                            "cat3": (14, 13), "files": (26, 13)}}, counts
@@ -82,8 +93,10 @@ def test_port_runs_without_jax_or_yaml(tmp_path):
     """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=600, cwd=str(tmp_path))
-    assert res.returncode == 0, res.stderr[-3000:]
-    assert "PORT-OK" in res.stdout
+    tails = (f"rc {res.returncode}\n--- stdout:\n{res.stdout[-3000:]}\n"
+             f"--- stderr:\n{res.stderr[-3000:]}")
+    assert res.returncode == 0, tails
+    assert "PORT-OK" in res.stdout, tails
 
 
 def test_unported_entry_points_name_the_roadmap(tmp_path):
@@ -96,7 +109,14 @@ def test_unported_entry_points_name_the_roadmap(tmp_path):
     make_minicube(path, nz=40, ny=10, nx=12)
     orig = ORIGIN.init(path, device="cpu", path=str(tmp_path), name="t",
                        loglevel="WARNING")
-    for call in (orig.write, lambda: ORIGIN.load("x")):
+    # a parameter file of the reference package's dialect (python tags)
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    (ref / "ref.yaml").write_text(
+        "cubename: tiny.fits\nstatus: !!python/object/apply:"
+        "origin.steps.Status [1]\n")
+    for call in (lambda: orig.write(compat="reference"),
+                 lambda: ORIGIN.load(str(ref), device="cpu")):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.*Session I/O"):
             call()

@@ -10,10 +10,11 @@ the GPU kernel and memcpy intervals inside the step's window) and the idle
 share ``1 - busy / wall``, and the step's three ops with the most device
 time; then the device ops with the most device time overall.  The steps'
 own ``record_function`` ranges appear on the device timeline too and are
-left out of both.  Each run's masks/ and sources/ folders are deleted
-after it.  On the cold run, step 11's host stages are timed by wrappers
-(wall-clock sums and calls: the device rounds, the two kinds of cutout,
-the narrow-band images, the FITS writes and each source's whole build).
+left out of both.  Each run's session folder is deleted after it.  On the
+cold run, step 11's host stages are timed by wrappers (wall-clock sums and
+calls: the device rounds, the two kinds of cutout, the narrow-band images,
+the source files' FITS writes, each source's whole build, and the closing
+session write).
 Writes chiprun_out/profile_field_<mode>.json and the Chrome trace
 chiprun_out/profile_field_<mode>_trace.json, <mode> the precision.
 
@@ -46,6 +47,7 @@ class _StageTimer:
         from origin_tpu_torch.artifacts import source, source_creation
         from origin_tpu_torch.core.containers import Cube
         from origin_tpu_torch.pipeline.products import TensorCube
+        from origin_tpu_torch.pipeline.session import ORIGIN
         from origin_tpu_torch.pipeline.steps import SaveSources
 
         self.targets = [
@@ -54,9 +56,10 @@ class _StageTimer:
             ("raw-cube cutouts", Cube, "subcube"),
             ("narrow-band images", source.Source,
              "add_narrow_band_image_lbdaobs"),
-            ("FITS writes", source.Source, "write"),
+            ("source FITS writes", source.Source, "write"),
             ("source builds (writes included)", source_creation,
              "create_source"),
+            ("session write", ORIGIN, "write"),
         ]
         self.sums = {label: [0.0, 0] for label, _, _ in self.targets}
 
@@ -119,9 +122,8 @@ def main():
                 method(**kw)
                 torch.cuda.synchronize()
             walls[step] = time.perf_counter() - t0
-        for sub in ("masks", "sources"):
-            shutil.rmtree(os.path.join(orig.outpath, sub), ignore_errors=True)
         orig.close_logfile()
+        shutil.rmtree(orig.outpath, ignore_errors=True)
         return walls
 
     with _StageTimer() as stages:
