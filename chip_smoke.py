@@ -27,7 +27,11 @@ Phases, each fatal on failure:
    the peak device memory through step 09 and through step 11 (within 2%
    of each other), the number and bytes of the source files, and step
    11's closing session write (its wall, files and bytes, and step 11's
-   wall with and without it); the sweep's launch counter must move; on
+   wall with and without it, beside the dense write's; the kind of each
+   of the ten cube product files, which must be the JAX package's
+   defaults: three recipes, four sparse scaled-int16 tables, two
+   scaled-int16 images, the dense uint8 profile cube); the sweep's launch
+   counter must move; on
    the cold run, step 08's line estimation of the first 16 Cat1 rows on
    the card against the port's own on the CPU, every line max image of
    steps 10-11 bit for bit against ``ops.cutouts.line_max_images`` on the
@@ -35,9 +39,9 @@ Phases, each fatal on failure:
    8 sources against ``ops.spectra.source_spectra`` on the CPU (within
    1e-5 of each spectrum's largest magnitude), and the detection-cube
    cutout of the first 4 source files exactly against the host cube's
-   ``subcube`` (the detection cubes come back from the session files at
-   their first fetch).  Each session folder (~4.3 GB) is deleted after
-   its checks;
+   ``subcube`` (the detection cubes as they were before the closing write
+   stored them in their compact forms).  Each session folder is deleted
+   after its checks;
 a. the spatial FSF kernel against its plain version at 3681 x 100 x 200,
    at ``highest`` and in bf16x3, with two weighted fields on a 256-channel
    cut, and on a 300 x 300 x 256 cut; CUDA-event times of the kernel, the
@@ -61,19 +65,36 @@ d. steps 01-07 of the minicube and of the field with
    within one line of the ``highest`` run's and its correl threshold
    within 0.005;
 e. resume on the card: session B runs steps 01-04 of the field file and
-   writes itself; session C loads B's folder (``ORIGIN.load(...,
+   writes itself in dense files (the three ``ORIGIN_TPU_STORE_*`` knobs
+   at 0 around its write only); session C loads B's folder (``ORIGIN.load(...,
    device="cuda")``) and runs steps 05-11 with the launch counters set to
    0 just before: the float32 sweep must launch, on the cube_faint read
    back from B's file; C's thresholds equal those of phase 5's cold run
    (the uninterrupted reference), its Cat0 and Cat1 row for row (integer
    columns exact, floats at rtol 1e-6), Cat2 and Cat3 likewise, and it
    writes as many source and mask files.  Printed: B's write wall, C's
-   load wall, and the first-fetch seconds (FITS read, then upload) of
-   cube_faint and of the five step-05 cubes.
+   load wall, and the first-fetch seconds (FITS read, host rebuild,
+   upload) of cube_faint and of the five step-05 cubes (these from C's
+   compact closing write);
+f. the compact resume: session B2 runs steps 01-04 of the field file and
+   writes itself with the default knobs (three recipes, two sparse
+   tables); C2 loads it on the card, its first fetches of cube_std and
+   cube_faint are timed (FITS read, host rebuild from the recipe, upload)
+   and the rebuilt cube_faint is held within 1e-3 of B2's live tensor;
+   C2 runs steps 05-11 with the counters set to 0 just before: the float32
+   sweep must launch, the correl threshold lie within 1e-3 of phase 5's
+   cold run and Cat0/Cat1 within one line of it; C2's closing write must
+   leave the ten default kinds, and its folder, loaded once more, must
+   hold each int16 or sparse product as the encoder's integers and scale
+   of the live tensor it was written from, bit for bit, each value
+   decoded within half a step of the live one (HALF_STEP_TOL) but the
+   extrema that the sparse form clamps to one step.
 
 In phases 4, 5 and d, steps 05-07 are then re-run with the plain versions
 in place of the kernels (after the step 08-11 checks: the re-run replaces
-the Cat1 under Cat2), and the two catalogs must agree row for row.  The
+the Cat1 under Cat2), and the two catalogs must agree row for row; after
+step 11, whose write stored the inputs of step 05 in their compact
+forms, steps 05-07 first run again with the kernels on those inputs.  The
 std threshold, which step 04 does not touch, is held within 0.02 of the
 JAX package's.  What step 04 decides is held to a reference that runs the
 same algorithm to convergence, because the JAX package stops its power
@@ -86,8 +107,8 @@ line of the float64 ARPACK oracle of step 04 (tools_torch/field_step04.py).
 Every launch counter is set to 0 just before a main-path run and read
 just after it: phase 5's cold run for the float32 sweep, phase d's field
 run for the spatial kernel and the bf16x3 sweep, phase c's entry calls for
-the spaxel-major sweeps, phase e's resumed steps 05-11 for the float32
-sweep again.  The next-to-last line of stdout is a JSON record
+the spaxel-major sweeps, phase e's and phase f's resumed steps 05-11 for
+the float32 sweep again.  The next-to-last line of stdout is a JSON record
 of the kernels, the line before it the card's name and power limit, the
 last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
@@ -214,6 +235,23 @@ CATALOGS = ("Cat0", "Cat1", "Cat2", "Cat3_lines", "Cat3_sources")
 # the cube products of step 05, parked by step 11's closing write
 STEP05_CUBES = ("cube_correl", "cube_correl_min", "cube_profile",
                 "cube_local_max", "cube_local_min")
+# the kind of file each cube product is stored in by default, as the JAX
+# package stores it: recipes (the ORITPURE kind), sparse scaled-int16
+# tables, scaled-int16 images, dense uint8
+PRODUCT_KINDS = dict(
+    cube_std="dct_std", cont_dct="dct_cont", cube_faint="pca_faint",
+    cube_std_local_min="sparse", cube_std_local_max="sparse",
+    cube_local_min="sparse", cube_local_max="sparse", cube_correl="int16",
+    cube_correl_min="int16", cube_profile="uint8")
+STORE_KNOBS = ("ORIGIN_TPU_STORE_RECIPES", "ORIGIN_TPU_STORE_SPARSE",
+               "ORIGIN_TPU_STORE_INT16")
+# phase f: a scaled-int16 value decodes within half a step of the value it
+# was quantized from, plus the float32 rounding of x / scale (up to 2**-9
+# of a step at |q| < 2**15) and of the decode
+HALF_STEP_TOL = 0.505
+# the field's closing write in dense files (PERF.md section 6; NVIDIA H100
+# 80GB HBM3, 700 W)
+DENSE_WRITE = "2.74 GB in 2.98-3.40 s"
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, dense)
 PEAK_FP32 = 67e12       # FLOP/s on the CUDA cores
@@ -316,6 +354,49 @@ def _session_files(outpath):
              and not n.endswith(".log")]
     return len(names), sum(os.path.getsize(os.path.join(outpath, n))
                            for n in names)
+
+
+def _product_kinds(outpath, names):
+    """The kind of each cube product's file (see PRODUCT_KINDS)."""
+    from origin_tpu_torch import fitsio
+
+    out = {}
+    for name in names:
+        fn = os.path.join(outpath, name + ".fits")
+        phdr, dhdr = fitsio.getheader(fn, 0), fitsio.getheader(fn, 1)
+        out[name] = (phdr.get("ORITPURE")
+                     or ("sparse" if phdr.get("ORITPUSP") else None)
+                     or ("int16" if "BSCALE" in dhdr else None)
+                     or {8: "uint8", -32: "float32"}[int(dhdr["BITPIX"])])
+    return out
+
+
+class _BeforeWrite:
+    """Swaps ``ORIGIN.write`` for a wrapper that keeps, before each write,
+    the device tensors of the session's live cube products ``names`` (no
+    copy: the references keep them alive)."""
+
+    def __init__(self, cls, names):
+        self.cls, self.names = cls, names
+        self.fn = cls.write
+        self.tensors = {}
+
+    def __enter__(self):
+        from origin_tpu_torch.pipeline.products import TensorCube
+
+        def wrapped(orig, *args, **kwargs):
+            for name in self.names:
+                owner = orig._product_owner[name]
+                value = owner.store.peek(name)
+                if isinstance(value, TensorCube):
+                    self.tensors[name] = value.tensor
+            return self.fn(orig, *args, **kwargs)
+
+        self.cls.write = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.write = self.fn
 
 
 def _time_cuda(fn, reps):
@@ -605,13 +686,19 @@ def _catalog_rows(cat):
 
 
 def _rerun_with_plain(orig, step_kwargs, precision):
-    """Steps 05-07 again with the plain versions in place of the kernels
-    (the spatial stage's too in bf16x3)."""
+    """Steps 05-07 again, with the kernels and then with the plain versions
+    in their place (the spatial stage's too in bf16x3), both on the same
+    inputs: after step 11's closing write, those that steps 01-04 stored
+    in their compact files."""
     import numpy as np
 
     from origin_tpu_torch.ops import glr
     from origin_tpu_torch.pipeline import engine
 
+    if orig.steps["save_sources"].status.name != "NOTRUN":
+        # step 11's write stored the inputs anew: the kernels' run on them
+        _run_steps(orig, step_kwargs, ("step05", "step06", "step07"),
+                   sync=False)
     rows, tglr = _catalog_rows(orig.Cat1), np.asarray(orig.Cat1["T_GLR"])
     thr = (orig.param["threshold"], orig.param["threshold_std"])
     kernels = engine.spectral_sweep, engine.spatial_fsf
@@ -831,11 +918,12 @@ def _rows_rel_err(got, want):
                     per_row=True)
 
 
-def _field_source_checks(orig, line_calls, spectra_calls):
+def _field_source_checks(orig, line_calls, spectra_calls, live):
     """Steps 10-11 of the field's cold run against the same functions on
     the CPU: every line max image value for value, the first chunk's
     spectra within SPECTRA_REL, the first files' detection-cube cutouts
-    exactly."""
+    exactly, against the detection cubes ``live`` as they were before the
+    closing write stored them in their compact forms."""
     import numpy as np
     import torch
 
@@ -844,19 +932,17 @@ def _field_source_checks(orig, line_calls, spectra_calls):
     from origin_tpu_torch.ops.cutouts import line_max_images
     from origin_tpu_torch.ops.spectra import source_spectra
 
-    cubes = {0: orig.cube_correl, 1: orig.cube_std}
     copies = {}
 
     def host(t):
-        """The host copy of a device tensor (a detection cube's own)."""
+        """The host copy of a device tensor (one per tensor)."""
         if not torch.is_tensor(t):
             return t
-        for c in cubes.values():
-            if t is c.tensor:
-                return torch.from_numpy(c.data)
         if t.numel() < 2**20:
             return t.cpu()
         return copies.setdefault(id(t), t.cpu())
+
+    cubes = {0: live["cube_correl"], 1: live["cube_std"]}
 
     t0 = time.perf_counter()
     same, nimg = True, 0
@@ -891,8 +977,8 @@ def _field_source_checks(orig, line_calls, spectra_calls):
         src = Source.from_file(os.path.join(
             orig.outpath, "sources", "source-%05d.fits" % int(row["ID"])))
         got = src.cubes["ORI_SNCUBE" if comp else "ORI_CORREL"].data
-        parent = Cube(data=cubes[comp].data, wcs=orig.wcs, wave=orig.wave,
-                      copy=False)
+        parent = Cube(data=host(cubes[comp]).numpy(), wcs=orig.wcs,
+                      wave=orig.wave, copy=False)
         sub = parent.subcube((float(row["dec"]), float(row["ra"])),
                              got.shape[1], unit_center="deg")
         exact.append(np.array_equal(
@@ -1016,7 +1102,8 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
         peaks = {}
         with _Recorder(masks, "line_max_images") as line_calls, \
                 _Recorder(spectra, "source_spectra") as spectra_calls, \
-                _Timer(ORIGIN, "write") as writes:
+                _Timer(ORIGIN, "write") as writes, \
+                _BeforeWrite(ORIGIN, ("cube_correl", "cube_std")) as live:
             walls = _run_steps(orig, STEP_KWARGS, names, peaks=peaks)
         if first:
             counts = read_counts()
@@ -1037,14 +1124,20 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
                   "one session write")
             wfiles, wbytes = _session_files(orig.outpath)
             wall = writes.walls[0]
+            kinds = _product_kinds(orig.outpath, PRODUCT_KINDS)
             log(f"  {run}: step 11 {walls['step11']:.3f} s with its session "
                 f"write {wall:.3f} s ({walls['step11'] - wall:.3f} s "
                 f"without); the write: {wfiles} files, {wbytes} bytes, "
-                f"{wbytes / wall / 1e9:.3f} GB/s")
+                f"{wbytes / wall / 1e9:.3f} GB/s (dense: "
+                f"{DENSE_WRITE}); product files: "
+                + ", ".join(f"{k} {v}" for k, v in kinds.items()))
+            check(kinds == PRODUCT_KINDS, f"field {run}: the closing write "
+                  "stored the ten cube products in the JAX package's "
+                  "default kinds (3 recipes, 4 sparse, 2 int16, 1 uint8)")
             out[run].update(mask_files=nmask, source_files=nsrc,
                             source_bytes=nbytes, peak_step09_bytes=p09,
                             write_s=wall, write_files=wfiles,
-                            write_bytes=wbytes)
+                            write_bytes=wbytes, product_kinds=kinds)
             check(nsrc == len(orig.Cat3_sources) and nmask == 2 * nsrc,
                   f"field {run}: one source file and two mask files for "
                   f"each of the {len(orig.Cat3_sources)} Cat3 sources")
@@ -1067,7 +1160,8 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
                 out[run]["lines"] = _field_lines_checks(orig)
             if sources:
                 out[run]["sources"] = _field_source_checks(
-                    orig, line_calls.calls, spectra_calls.calls)
+                    orig, line_calls.calls, spectra_calls.calls,
+                    live.tensors)
             _rerun_with_plain(orig, STEP_KWARGS, precision)
         orig.close_logfile()
         shutil.rmtree(orig.outpath, ignore_errors=True)
@@ -1094,28 +1188,49 @@ def _same_rows(got, want, rtol):
 
 
 def _first_fetches(orig, names):
-    """Each product's first fetch after its park: (FITS read s, upload s),
-    one product at a time, the device drained at both ends."""
-    from origin_tpu_torch.pipeline import products
+    """Each product's first fetch after its park: (FITS read s, host
+    rebuild s, upload s), one product at a time, the device drained at both
+    ends.  The read is the dense or compact file's, or the recipe's; the
+    rebuild a recipe's on the host (0 for any other file), with the raw
+    cube's host views or cube_std's host copy that it needs; the upload
+    the rest of the fetch."""
+    from origin_tpu_torch.pipeline import products, recipes, steps
+
+    acc = {"read": 0.0, "rebuild": 0.0}
+
+    def timed(fn, key):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return wrapped
 
     fmt = products.FORMATS["cube"]
-    out, reads = {}, []
-
-    def timed_load(path):
-        t0 = time.perf_counter()
-        try:
-            return fmt.load(path)
-        finally:
-            reads.append(time.perf_counter() - t0)
-
-    products.FORMATS["cube"] = fmt._replace(load=timed_load)
+    swaps = [(steps, "load_recipe", "read"),
+             (recipes.LazyRecipeCube, "_rebuild_full", "rebuild")]
+    kept = [getattr(mod, attr) for mod, attr, _ in swaps]
+    products.FORMATS["cube"] = fmt._replace(load=timed(fmt.load, "read"))
+    for (mod, attr, key), fn in zip(swaps, kept):
+        setattr(mod, attr, timed(fn, key))
+    out = {}
     try:
         for name in names:
+            acc.update(read=0.0, rebuild=0.0)
             wall = sync_wall(lambda: getattr(orig, name))
-            out[name] = (reads[-1], wall - reads[-1])
+            out[name] = (acc["read"], acc["rebuild"],
+                         wall - acc["read"] - acc["rebuild"])
     finally:
         products.FORMATS["cube"] = fmt
+        for (mod, attr, _), fn in zip(swaps, kept):
+            setattr(mod, attr, fn)
     return out
+
+
+def _fetch_line(fetch):
+    return ", ".join(f"{k} {r:.3f}/{b:.3f}/{u:.3f}"
+                     for k, (r, b, u) in fetch.items())
 
 
 def phase_resume(field, ref):
@@ -1133,9 +1248,24 @@ def phase_resume(field, ref):
     b = ORIGIN.init(field_fn, name="resume", path=WORK, loglevel="WARNING",
                     device="cuda")
     walls_b = _run_steps(b, STEP_KWARGS, STEP_NAMES[:4])
-    write_s = sync_wall(b.write)
+    # B writes dense files, so that C resumes from B's bits exactly; C's
+    # own closing write takes the default compact forms
+    saved = {k: os.environ.get(k) for k in STORE_KNOBS}
+    os.environ.update(dict.fromkeys(STORE_KNOBS, "0"))
+    try:
+        write_s = sync_wall(b.write)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     folder = b.outpath
     files, nbytes = _session_files(folder)
+    kinds = _product_kinds(folder, ("cube_std", "cube_faint",
+                                    "cube_std_local_max"))
+    check(set(kinds.values()) == {"float32"}, "B wrote dense float32 files "
+          f"with the store knobs at 0 ({kinds})")
     b.close_logfile()
     del b
     gc.collect()
@@ -1174,13 +1304,148 @@ def phase_resume(field, ref):
     check((nmask, nsrc) == ref["files"], f"C wrote {nsrc} source and "
           f"{nmask} mask files, as the uninterrupted run")
     fetch.update(_first_fetches(c, STEP05_CUBES))
-    log("  first fetches (FITS read s, upload s): " + ", ".join(
-        f"{k} {r:.3f}/{u:.3f}" for k, (r, u) in fetch.items()))
+    log("  first fetches (FITS read / rebuild / upload s; cube_faint's "
+        "dense, the others from C's compact write): " + _fetch_line(fetch))
     c.close_logfile()
     shutil.rmtree(folder, ignore_errors=True)
     return dict(walls_b=walls_b, write_s=write_s, write_files=files,
                 write_bytes=nbytes, load_s=load_s, walls_c=walls_c,
                 launches=counts, first_fetch_s=fetch)
+
+
+# -- phase f ------------------------------------------------------------------
+def _hold_compact(name, got, live, kind, scale, pairs=None):
+    """A product read back from its compact file (``got``, decoded on the
+    device, its kept ``scale``; ``pairs`` the sparse file's own) against
+    the live tensor it was written from: the file's integers and scale are
+    the encoder's of the live tensor bit for bit, and each decoded value
+    lies within half a step of the live one, but the extrema that the
+    sparse form clamps to +-1 step."""
+    import numpy as np
+    import torch
+
+    from origin_tpu_torch.ops.quant import encode_i16, sparse_i16
+
+    if kind == "int16":
+        q, s = encode_i16(live)
+        decoded = q.to(torch.float32) * torch.tensor(np.float32(s),
+                                                     device=q.device)
+        same = s == scale and torch.equal(got, decoded)
+        clamped = torch.zeros_like(live, dtype=torch.bool)
+    else:
+        idx, q, s = sparse_i16(live)
+        same = (s == scale and np.array_equal(pairs[0], idx.cpu().numpy())
+                and np.array_equal(pairs[1], q.cpu().numpy()))
+        clamped = (live != 0) & (live.abs() < 0.5 * np.float32(s))
+    err = (got.double() - live.double()).abs()
+    err = torch.where(clamped, 0.0, err).max().item() / s
+    check(same and err <= HALF_STEP_TOL, f"C2: {name} ({kind}) holds the "
+          f"encoder's integers and scale of its live tensor bit for bit, "
+          f"decoded within {err:.4f} <= {HALF_STEP_TOL} step "
+          f"({int(clamped.sum())} extrema clamped to one step)")
+    return dict(max_err_steps=err, scale=s, clamped=int(clamped.sum()))
+
+
+def phase_compact(field, ref):
+    """Session B2: steps 01-04 of the field file, written in the default
+    compact files; C2: load(device="cuda"), the first fetches of the recipe
+    products, steps 05-11 with the counters set to 0 just before, held
+    against phase 5's cold run; C2's closing write read back as D and held
+    against the live tensors it was written from."""
+    import numpy as np
+    import torch
+
+    from origin_tpu_torch.core import Cube
+    from origin_tpu_torch.pipeline.session import ORIGIN
+
+    field_fn, _ = field
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = ORIGIN.init(field_fn, name="compact", path=WORK, loglevel="WARNING",
+                    device="cuda")
+    walls_b = _run_steps(b, STEP_KWARGS, STEP_NAMES[:4])
+    faint = b.cube_faint.tensor.cpu().numpy()  # before B2 is freed
+    write_s = sync_wall(b.write)
+    folder = b.outpath
+    files, nbytes = _session_files(folder)
+    front = ("cube_std", "cont_dct", "cube_faint", "cube_std_local_min",
+             "cube_std_local_max")
+    kinds = _product_kinds(folder, front)
+    b.close_logfile()
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  B2: steps 01-04 {sum(walls_b.values()):.3f} s; write "
+        f"{write_s:.3f} s ({files} files, {nbytes} bytes; "
+        + ", ".join(f"{k} {v}" for k, v in kinds.items()) + ")")
+    check(kinds == {k: PRODUCT_KINDS[k] for k in front},
+          "B2 wrote three recipes and two sparse tables")
+
+    t0 = time.perf_counter()
+    c = ORIGIN.load(folder, device="cuda")
+    load_s = time.perf_counter() - t0
+    fetch = _first_fetches(c, ("cube_std", "cube_faint"))
+    dfaint = float(np.abs(c.cube_faint.tensor.cpu().numpy() - faint).max())
+    del faint
+    log(f"  C2: load {load_s:.3f} s; first fetches (FITS read / host "
+        f"rebuild / upload s): {_fetch_line(fetch)}; the rebuilt cube_faint "
+        f"within {dfaint:.3g} of B2's live tensor")
+    check(dfaint <= 1e-3, f"C2's cube_faint rebuilt from its recipe within "
+          f"{dfaint:.3g} <= 1e-3 of B2's live tensor")
+    compact = tuple(n for n in STEP05_CUBES if PRODUCT_KINDS[n] != "uint8")
+    reset_counts()
+    with _Timer(ORIGIN, "write") as writes, \
+            _BeforeWrite(ORIGIN, compact) as live:
+        walls_c = _run_steps(c, STEP_KWARGS, STEP_NAMES[4:])
+    counts = read_counts()
+    log(f"  C2: steps 05-11 " + " ".join(f"{k} {v:.3f}s"
+                                         for k, v in walls_c.items())
+        + f"  total {sum(walls_c.values()):.3f}s; its write "
+        f"{writes.walls[0]:.3f} s")
+    log(f"  launches in C2's steps 05-11: {counts}")
+    check(counts["toeplitz_sweep"] > 0, "C2's step 05 launched "
+          f"toeplitz_sweep ({counts['toeplitz_sweep']} launches) on the "
+          "cube_faint rebuilt from its recipe")
+    dthr = c.param["threshold"] - ref["threshold"]
+    check(abs(dthr) <= 1e-3, f"C2's correl threshold "
+          f"{c.param['threshold']:.6f} within {dthr:+.3g} (<= 1e-3) of the "
+          "uninterrupted run's")
+    for name in ("Cat0", "Cat1"):
+        got, want = len(getattr(c, name)), len(ref[name])
+        check(abs(got - want) <= COUNT_TOL, f"C2's {name} {got} within "
+              f"{COUNT_TOL} line of the uninterrupted run's {want}")
+    kinds = _product_kinds(folder, PRODUCT_KINDS)
+    check(kinds == PRODUCT_KINDS, "C2's closing write left the ten default "
+          "kinds (3 recipes, 4 sparse, 2 int16, 1 uint8)")
+    check(set(live.tensors) == set(compact), "C2's closing write stored "
+          f"{sorted(live.tensors)}")
+    summary = dict(threshold=c.param["threshold"],
+                   threshold_std=c.param["threshold_std"],
+                   cat0=len(c.Cat0), cat1=len(c.Cat1),
+                   write_c_s=writes.walls[0])
+    c.close_logfile()
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    d = ORIGIN.load(folder, device="cuda")
+    held = {}
+    for name, tensor in live.tensors.items():
+        cube = getattr(d, name)
+        pairs = None
+        if PRODUCT_KINDS[name] == "sparse":
+            pairs = Cube(os.path.join(folder, name + ".fits"))._wire16.pairs
+        held[name] = _hold_compact(name, cube.tensor, tensor,
+                                   PRODUCT_KINDS[name], cube.scale, pairs)
+    d.close_logfile()
+    del d, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(folder, ignore_errors=True)
+    return dict(walls_b=walls_b, write_s=write_s, write_files=files,
+                write_bytes=nbytes, load_s=load_s, first_fetch_s=fetch,
+                faint_max_abs=dfaint, walls_c=walls_c, launches=counts,
+                held=held, **summary)
 
 
 # -- phase a ------------------------------------------------------------------
@@ -1515,6 +1780,9 @@ def main():
     res["bf16x3"] = phase_bf16x3(field, res)
     log("[e] resume on cuda: field steps 01-04, write, load, steps 05-11")
     res["resume"] = phase_resume(field, reference)
+    log("[f] compact resume on cuda: field steps 01-04 in the default "
+        "session files (B2), load (C2), steps 05-11")
+    res["compact"] = phase_compact(field, reference)
     jaxed = sorted(m for m in sys.modules if m.split(".")[0] in
                    ("jax", "origin_tpu"))
     check(not jaxed, "nothing of JAX or of the JAX package was imported "

@@ -215,7 +215,12 @@ def create_source(
 
     ori_tag = "ORI_SNCUBE" if comp else "ORI_CORREL"
     if cube_ori is None:
-        cube_ori = Cube(cube_std_filename if comp else cube_cor_filename)
+        from ..pipeline.recipes import load_cube
+
+        # lazy: a recipe-stored cube_std rebuilds only this source's
+        # window instead of the full field
+        cube_ori = load_cube(cube_std_filename if comp else cube_cor_filename,
+                             lazy=True)
     if cube_ori.shape[1:] == (mask_size, mask_size):
         source.cubes[ori_tag] = cube_ori
     else:
@@ -431,10 +436,15 @@ def create_all_sources(
     for source_id in ids:
         k = int(np.where(np.asarray(cat3_sources["ID"]) == source_id)[0][0])
         comps[source_id] = int(cat3_sources[k]["comp"])
+    # recipe-aware: a session stores cube_std as its generator file
+    # (pipeline.recipes) by default; lazy, so the comp=1 cutouts below
+    # rebuild O(window), not the full field
+    from ..pipeline.recipes import load_cube
+
     if cube_cor is None and 0 in comps.values():
-        cube_cor = Cube(cube_cor_filename)
+        cube_cor = load_cube(cube_cor_filename)
     if cube_std is None and 1 in comps.values():
-        cube_std = Cube(cube_std_filename)
+        cube_std = load_cube(cube_std_filename, lazy=True)
 
     def _precut(cube, source_id, size):
         k = int(np.where(np.asarray(cat3_sources["ID"]) == source_id)[0][0])

@@ -3,9 +3,11 @@
 (The port's copy of the part of ``origin_tpu/core/containers.py`` that steps
 01-11 use: float data with optional variance and mask, world coordinates, FITS
 reads and writes, the reductions of a session's white image, the trimmed
-per-line spectra of step 08 and the cutouts of steps 10-11.  The int16 wire
-of the JAX package's session files is not ported, so every cutout is
-float32.)
+per-line spectra of step 08 and the cutouts of steps 10-11, and the compact
+forms of the JAX package's session files: scaled-int16 images and sparse
+scaled-int16 tables.  The JAX package's ``QuantCube``, which cuts int16
+windows from a host wire, is not ported: the port cuts its windows on the
+device, so every cutout is float32.)
 
 Replaces the subset of ``mpdaf.obj.Cube/Image/Spectrum`` used by the reference
 (see reference steps.py:284-299): data + optional variance + optional boolean
@@ -20,7 +22,104 @@ import numpy as np
 from .. import fitsio
 from .coords import WCS, WaveCoord
 
-__all__ = ["Cube", "Image", "Spectrum", "cutout_window", "cutout_wcs"]
+__all__ = ["Cube", "Image", "Spectrum", "Quant16", "cutout_window",
+           "cutout_wcs", "write_int16", "write_sparse"]
+
+# primary-header marker of a sparse scaled-int16 cube file (the session
+# storage of the four local-extrema cubes; see _Base.write / _Base._load)
+SPARSE_KEY = "ORITPUSP"
+
+
+def _store_sparse():
+    """``ORIGIN_TPU_STORE_SPARSE=0`` stores the local-extrema cubes as
+    dense images instead of sparse tables."""
+    import os
+
+    return os.environ.get("ORIGIN_TPU_STORE_SPARSE", "1").lower() not in (
+        "0", "false")
+
+
+def _store_int16():
+    """``ORIGIN_TPU_STORE_INT16=0`` stores every cube product as float32
+    (the sparse form too: its values are the int16 ones)."""
+    import os
+
+    return os.environ.get("ORIGIN_TPU_STORE_INT16", "1").lower() not in (
+        "0", "false", "f32", "float32")
+
+
+class Quant16:
+    """What a loaded scaled-int16 file keeps of its form: the ``scale``
+    (``physical = q * scale``) and, for the sparse form, the ``pairs``
+    (flat index, int16 value) of the nonzero entries.
+
+    Detection-statistic cubes are noise-normalized, so the quantization
+    floor ``max|x| / 32766`` sits far below their noise; the session
+    stores them as BITPIX 16 images with a ``BSCALE`` card, and the
+    mostly-zero local-extrema cubes as their pairs.  An image's integers
+    are ``round(decoded / scale)``, exactly (``|q| < 2**15``, so
+    ``fl(fl(q * s) / s)`` is within 2**-9 of ``q``): the wire keeps no
+    int16 copy of them.
+    """
+
+    __slots__ = ("scale", "pairs")
+
+    def __init__(self, scale, pairs=None):
+        self.scale = float(scale)
+        self.pairs = pairs
+
+
+def requantize(data, scale):
+    """The int16 integers of float32 ``data`` at ``scale`` (host numpy:
+    ``clip(round_half_even(data / f32(scale)), +-32767)``)."""
+    q = np.round(np.asarray(data, np.float32) / np.float32(scale))
+    return np.clip(q, -32767, 32767).astype(np.int16)
+
+
+def data_header(shape, wcs, wave):
+    """wcs/wave/EXTNAME header for the DATA extension of an array of
+    ``shape``."""
+    dhdr = fitsio.Header()
+    if wcs is not None:
+        wcs.to_header(dhdr)
+    if wave is not None and len(shape) in (1, 3):
+        wave.to_header(dhdr, axis=3 if len(shape) == 3 else 1)
+    dhdr["EXTNAME"] = "DATA"
+    return dhdr
+
+
+def write_int16(filename, q, scale, primary_header, dhdr):
+    """A scaled-int16 image file: BITPIX 16 with ``BSCALE = scale``."""
+    dhdr = dhdr.copy()
+    dhdr["BSCALE"] = float(scale), "physical = BSCALE * stored"
+    dhdr["BZERO"] = 0.0
+    fitsio.write(filename, [
+        fitsio.HDU(header=primary_header.copy()),
+        fitsio.HDU(data=np.asarray(q, np.int16), header=dhdr),
+    ])
+
+
+def write_sparse(filename, fidx, qvals, scale, shape, primary_header, dhdr):
+    """A sparse scaled-int16 cube file: the ``SPARSE_KEY`` primary card
+    with the scale and the shape, and a binary table of the nonzero
+    entries' flat indices (``IDX``) and int16 values (``VAL``)."""
+    from collections import OrderedDict
+
+    phdr = primary_header.copy()
+    for key in (SPARSE_KEY, "SPSCALE", "SPNZ", "SPNY", "SPNX"):
+        if key in phdr:  # a loaded sparse file's: written again in order
+            del phdr[key]
+    phdr[SPARSE_KEY] = ("extrema16", "sparse scaled-int16 cube (origin_tpu)")
+    phdr["SPSCALE"] = float(scale), "physical = SPSCALE * VAL"
+    nz, ny, nx = shape
+    phdr["SPNZ"] = int(nz)
+    phdr["SPNY"] = int(ny)
+    phdr["SPNX"] = int(nx)
+    cols = OrderedDict(IDX=np.asarray(fidx), VAL=np.asarray(qvals, np.int16))
+    fitsio.write(filename, [
+        fitsio.HDU(header=phdr),
+        fitsio.HDU(data=cols, header=dhdr),
+    ])
 
 
 class _Base:
@@ -71,6 +170,12 @@ class _Base:
         self._data_arr = val
         # replaced content: a stamped derived-mask shortcut is stale
         self._mask_is_nonfinite = False
+        # ... a kept int16 wire (loaded compact files keep theirs, so a
+        # re-park writes the same integers; see _load) is stale too
+        self._wire16 = None
+        # ... and a recipe-file provenance stamp: the generator file no
+        # longer describes this content (products._recipe_current)
+        self._recipe_source = None
         # content generation: lets ProductStore.park_dirty distinguish a
         # replaced product from a plain re-read on a resumed session
         self._gen = getattr(self, "_gen", 0) + 1
@@ -196,16 +301,21 @@ class _Base:
     # -- I/O ----------------------------------------------------------------------
     def _data_header(self):
         """wcs/wave/EXTNAME header for the DATA extension."""
-        dhdr = fitsio.Header()
-        shape = self.shape
-        if self.wcs is not None:
-            self.wcs.to_header(dhdr)
-        if self.wave is not None and len(shape) in (1, 3):
-            self.wave.to_header(dhdr, axis=3 if len(shape) == 3 else 1)
-        dhdr["EXTNAME"] = "DATA"
-        return dhdr
+        return data_header(self.shape, self.wcs, self.wave)
 
     def write(self, filename, savemask="nan", convert_float32=False, **kwargs):
+        wire = getattr(self, "_wire16", None)
+        if (wire is not None and self.var is None and self.mask is None
+                and len(self.shape) == 3 and _store_int16()):
+            # a loaded compact file, unmodified: written again in its
+            # form, as the same integers at the same scale
+            if wire.pairs is not None and _store_sparse():
+                write_sparse(filename, *wire.pairs, wire.scale, self.shape,
+                             self.primary_header, self._data_header())
+                return
+            write_int16(filename, requantize(self.data, wire.scale),
+                        wire.scale, self.primary_header, self._data_header())
+            return
         data = self.data
         if savemask == "nan" and self.mask is not None and data.dtype.kind == "f":
             data = np.array(data, copy=True)
@@ -226,6 +336,31 @@ class _Base:
     def _load(self, filename):
         hdus = fitsio.read(filename)
         self.primary_header = hdus[0].header
+        if self.primary_header.get(SPARSE_KEY) and len(hdus) > 1:
+            # sparse scaled-int16 cube (see write): scatter the pairs
+            # into a dense float32 array, as the dense int16 file's
+            # decode gives
+            phdr = self.primary_header
+            shape = (int(phdr["SPNZ"]), int(phdr["SPNY"]), int(phdr["SPNX"]))
+            scale = np.float32(phdr["SPSCALE"])
+            tbl = hdus[1]
+            flat = np.zeros(int(np.prod(shape)), np.float32)
+            idx = np.asarray(tbl.data["IDX"])
+            vals = np.asarray(tbl.data["VAL"], np.int16)
+            if idx.size:
+                flat[idx] = vals.astype(np.float32) * scale
+            self.data = flat.reshape(shape)
+            self.var = None
+            self.mask = None
+            hdr = tbl.header
+            self.wcs = WCS.from_header(hdr, shape=shape[-2:])
+            self.wave = WaveCoord.from_header(hdr, axis=3, shape=shape[0])
+            self.data_header = hdr
+            # keep the pairs and the header's (float64) scale: a re-park
+            # writes the same table
+            self._wire16 = Quant16(phdr["SPSCALE"], pairs=(idx, vals))
+            del phdr[SPARSE_KEY]  # re-written fresh by write()
+            return
         data_hdu = None
         stat_hdu = None
         for h in hdus:
@@ -246,6 +381,10 @@ class _Base:
             self._stamp_nonfinite_mask()
         else:
             self.mask = None
+        scale16 = getattr(data_hdu, "scale16", None)
+        if scale16 is not None and stat_hdu is None:
+            # a scaled-int16 image: keep its scale (see Quant16)
+            self._wire16 = Quant16(scale16)
         hdr = data_hdu.header
         shape = self.shape
         if len(shape) >= 2:

@@ -1,6 +1,7 @@
 """Minimal, dependency-free FITS reader/writer.
 
-(The port's copy of the reading and writing half of ``origin_tpu/fitsio.py``.)
+(The port's copy of the reading and writing half of ``origin_tpu/fitsio.py``,
+and of its ``getheader``.)
 
 The reference pipeline (musevlt/origin) leans on astropy.io.fits and mpdaf for
 all of its FITS I/O.  Neither is available in this environment, and the
@@ -26,7 +27,7 @@ from collections import OrderedDict
 
 import numpy as np
 
-__all__ = ["Header", "HDU", "read", "write", "getdata"]
+__all__ = ["Header", "HDU", "read", "write", "getdata", "getheader"]
 
 BLOCK = 2880
 CARDLEN = 80
@@ -476,6 +477,7 @@ def read(filename):
             naxis = int(hdr.get("NAXIS", 0))
             dims = [int(hdr[f"NAXIS{i}"]) for i in range(1, naxis + 1)]
             nelem = int(np.prod(dims)) if dims else 0
+            scale16 = None
             if xtension == "BINTABLE":
                 nbytes = int(hdr["NAXIS1"]) * int(hdr["NAXIS2"]) + int(
                     hdr.get("PCOUNT", 0)
@@ -510,6 +512,8 @@ def read(filename):
                         # precision.  Files with a BZERO offset (foreign
                         # conventions) keep the exact float64 path.
                         if data.dtype.itemsize <= 2 and bzero == 0:
+                            if data.dtype == np.int16:
+                                scale16 = float(bscale)
                             data = data.astype(np.float32)
                             data *= np.float32(bscale)
                         else:
@@ -519,7 +523,12 @@ def read(filename):
                     for card in ("BSCALE", "BZERO"):
                         if card in hdr:
                             del hdr[card]
-            hdus.append(HDU(data=data, header=hdr))
+            hdu = HDU(data=data, header=hdr)
+            # the BSCALE of a scaled-int16 image (its card is stripped
+            # above): a reader that keeps it can store the decoded values
+            # again as the same integers (containers._Base._load)
+            hdu.scale16 = scale16
+            hdus.append(hdu)
             first = False
         if first:
             raise OSError(f"empty FITS file: {filename}")
@@ -660,6 +669,43 @@ def write(filename, hdus, overwrite=True):
 # ---------------------------------------------------------------------------
 # convenience helpers
 # ---------------------------------------------------------------------------
+
+def _data_unit_bytes(hdr):
+    """Size of the (unpadded) data unit that follows ``hdr``."""
+    naxis = int(hdr.get("NAXIS", 0))
+    dims = [int(hdr[f"NAXIS{i}"]) for i in range(1, naxis + 1)]
+    nelem = int(np.prod(dims)) if dims else 0
+    if str(hdr.get("XTENSION", "")).strip() == "BINTABLE":
+        return int(hdr["NAXIS1"]) * int(hdr["NAXIS2"]) + int(
+            hdr.get("PCOUNT", 0))
+    if naxis == 0 or nelem == 0:
+        return 0
+    return nelem * _BITPIX_TO_DTYPE[int(hdr["BITPIX"])].itemsize
+
+
+def getheader(filename, ext=0):
+    """Header of one HDU, seeking past data units instead of reading
+    them (recipes/session restores probe GB-scale cube files for one
+    primary keyword)."""
+    with open(filename, "rb") as fh:
+        i = 0
+        while True:
+            hdr = _read_header(fh)
+            if hdr is None:
+                if i == 0:
+                    raise OSError(f"empty FITS file: {filename}")
+                if isinstance(ext, str):
+                    raise KeyError(
+                        f"extension {ext!r} not found in {filename}")
+                raise IndexError(f"no extension {ext} in {filename}")
+            if isinstance(ext, str):
+                if str(hdr.get("EXTNAME", "")).strip() == ext:
+                    return hdr
+            elif i == ext:
+                return hdr
+            fh.seek(_padded(_data_unit_bytes(hdr)), 1)
+            i += 1
+
 
 def getdata(filename, ext=None):
     hdus = read(filename)

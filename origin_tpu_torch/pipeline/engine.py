@@ -9,9 +9,12 @@ keep every cube-sized intermediate on the session's device, and only 2-D
 images, per-area vectors, (50,)-vectors, sparse detection lists and
 per-line and per-source results come back to the host.
 
-The JAX engine's transfer machinery (streamed ingest, int16 and
-bit-packed wires, speculative and bucketed compaction, host rebuilds)
-exists for a slow TPU host link and is not ported.
+Steps 01 and 04 also bring their products' recipe payloads to the host
+(the DCT coefficients and channel means, the greedy PCA's rank-1 factors),
+which the session stores in place of the dense cubes (``recipes.py``).  The
+JAX engine's transfer machinery (streamed ingest, int16 and bit-packed
+wires, speculative and bucketed compaction, host rebuilds) exists for a
+slow TPU host link and is not ported.
 """
 
 from __future__ import annotations
@@ -192,13 +195,17 @@ class TorchEngine:
         """DCT + standardization + std local extrema.
 
         Returns (device dict, host dict): the cube-sized products stay on
-        device; the 2-D images come back as numpy.
+        device; the 2-D images come back as numpy, with the recipe payload
+        of cube_std and cont_dct: the (order+1, Ny, Nx) DCT coefficients
+        ``coef`` and the (Nz,) channel means ``mean_z``.
         """
         cube, var, mask = (self.input_cube(), self.input_var(),
                            self.input_mask())
-        cont = dct_residual(cube, dct_order, var=var, approx=dct_approx,
-                            mask=mask)
-        data, cont_std = standardize(cube, cont, var, mask)
+        cont, coef = dct_residual(cube, dct_order, var=var,
+                                  approx=dct_approx, mask=mask,
+                                  with_coef=True)
+        data, cont_std, mean_z = standardize(cube, cont, var, mask,
+                                             with_mean=True)
         del cont
         lmax, lmin = compute_local_max(data, data, mask, local_max_size)
         host = dict(
@@ -206,6 +213,7 @@ class TorchEngine:
             ima_dct=_host(torch.mean(cont_std, dim=0)),
             o2=_host(o2test(data)),
             cont_sumsq=_host(torch.sum(cont_std * cont_std, dim=0)),
+            coef=_host(coef), mean_z=_host(mean_z),
         )
         dev = dict(cube_std=data, cont_dct=cont_std,
                    cube_std_local_max=lmax, cube_std_local_min=lmin)
@@ -218,7 +226,11 @@ class TorchEngine:
 
         Per area, the (Nz, Npix_area) column block is gathered on device,
         cleaned by :func:`greedy_pca` and scattered back into a copy of
-        ``cube_std``.  Returns ``(faint, mapO2, nstop)``.
+        ``cube_std``.  Returns ``(faint, mapO2, nstop, factors)``, where
+        ``factors`` is the cube_faint recipe's payload: per area, its flat
+        spatial indices and the rank-1 factors ``(U, C)`` that
+        :func:`greedy_pca` removed, trimmed to the used columns as the JAX
+        engine trims them.
         """
         cube_std = self.get("cube_std")
         nz = cube_std.shape[0]
@@ -227,6 +239,7 @@ class TorchEngine:
         areamap = np.asarray(areamap)
         mapO2 = np.zeros(spatial_shape, dtype=np.int32)
         nstop = 0
+        factors = []
         for area in range(1, int(areamap.max()) + 1):
             (idx,) = np.nonzero((areamap == area).ravel())
             if idx.size == 0:
@@ -235,15 +248,20 @@ class TorchEngine:
             cols = flat[:, didx]
             valid = torch.ones(idx.size, dtype=torch.bool, device=self.device)
             test = self._upload(np.asarray(testO2[area - 1], np.float32))
-            faint, m, k = greedy_pca(
+            faint, m, k, u_mat, c_mat = greedy_pca(
                 cols, valid, test, float(thresholds[area - 1]),
                 noise_population=float(noise_population),
-                itermax=int(itermax),
+                itermax=int(itermax), record_factors=True,
             )
             flat[:, didx] = faint
             mapO2.ravel()[idx] = _host(m)
             nstop += int(k)
-        return flat.reshape(cube_std.shape), mapO2, nstop
+            u_mat, c_mat = _host(u_mat), _host(c_mat)
+            used = np.flatnonzero((u_mat != 0).any(axis=0))
+            if used.size:
+                factors.append((idx, u_mat[:, used],
+                                np.ascontiguousarray(c_mat[used])))
+        return flat.reshape(cube_std.shape), mapO2, nstop, factors
 
     # -- step 05 -----------------------------------------------------------
     def tglr(self, psf, wfields, profiles, pcut=1e-8, pmeansub=True, size=3):

@@ -1,7 +1,7 @@
 """Typed registry for on-disk step products.
 
-Port of :mod:`origin_tpu.pipeline.products` in its dense form.  A product
-is in one of three states:
+Port of :mod:`origin_tpu.pipeline.products`.  A product is in one of three
+states:
 
 * **live**: the in-memory object, just computed;
 * **parked**: written to the session directory and replaced by a
@@ -11,11 +11,17 @@ is in one of three states:
 
 Cube-sized products live on the session's device as :class:`TensorCube`,
 whose cutouts (:meth:`TensorCube.subcube`) replace the JAX package's
-windowed ``DeferredCube`` reads.  A ``TensorCube`` parks as a dense
-``Cube`` file of its host copy; the owning step's ``upload`` puts a
+windowed ``DeferredCube`` reads.  A ``TensorCube`` parks in its product's
+form, as the JAX package writes it by default: a recipe file
+(:mod:`.recipes`) when its step left the generators, a scaled-int16 image
+(the two correlation cubes) or a sparse scaled-int16 table (the four
+local-extrema cubes), quantized on the device (:mod:`..ops.quant`), and a
+dense file otherwise.  ``ORIGIN_TPU_STORE_RECIPES=0``,
+``ORIGIN_TPU_STORE_INT16=0``, ``ORIGIN_TPU_STORE_SPARSE=0`` and
+``ORIGIN_TPU_CORREL_WIRE=f32`` turn the forms off as in the JAX package.
+The owning step's ``resolve`` reads a recipe file and its ``upload`` puts a
 fetched cube back on the session's device.  The JAX package's background
-parking, lane accounting and recipe files are TPU-link and compact-store
-machinery and are not ported.
+parking and lane accounting are TPU-link machinery and are not ported.
 """
 
 from __future__ import annotations
@@ -26,13 +32,19 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..core.containers import Cube, Image, cutout_wcs, cutout_window
+from .. import fitsio
+from ..core.containers import (
+    Cube, Image, _store_int16, _store_sparse, cutout_wcs, cutout_window,
+    data_header, write_int16, write_sparse,
+)
 from ..core.table import Table
 from ..ops.lines import gather_windows
+from ..ops.quant import encode_i16, sparse_i16
+from .recipes import recipes_enabled
 from .spectra_io import load_spectra, save_spectra
 
 __all__ = ["FORMATS", "Format", "Parked", "ProductStore", "TensorCube",
-           "format_catalog"]
+           "format_catalog", "stored_form"]
 
 
 def format_catalog(cat):
@@ -48,28 +60,93 @@ def format_catalog(cat):
     return cat
 
 
+def stored_form(form):
+    """The form a cube of declared ``form`` (``"int16"``, ``"sparse"`` or
+    None) is written in under the environment's knobs, as the JAX package
+    decides it: ``ORIGIN_TPU_STORE_INT16=0`` leaves both int16 forms
+    (the sparse one carries int16 values), ``ORIGIN_TPU_CORREL_WIRE=f32``
+    the correlation cubes' int16 form, and ``ORIGIN_TPU_STORE_SPARSE=0``
+    stores the extrema as dense int16."""
+    if form is None or not _store_int16():
+        return None
+    if form == "int16" and os.environ.get(
+            "ORIGIN_TPU_CORREL_WIRE", "int16").lower() in (
+            "f32", "fp32", "float32"):
+        return None
+    if form == "sparse" and not _store_sparse():
+        return "int16"
+    return form
+
+
 class TensorCube:
     """A cube product that lives on the session's device.
 
     ``tensor`` is the (Nz, Ny, Nx) torch tensor; ``data`` copies it to a
-    host numpy array on first access (diagnostics, tests).
+    host numpy array on first access (diagnostics, tests).  ``form`` is the
+    compact form it is written in (see :func:`stored_form`), ``recipe`` the
+    writer of its recipe file, and ``scale`` the scale of the compact file
+    it was read from: an unmodified fetch is written again as the file's
+    own integers.  Assigning ``tensor`` or ``data`` replaces the content,
+    which is then written dense, as the JAX package writes replaced
+    content.
     """
 
-    def __init__(self, tensor, wcs=None, wave=None):
-        self.tensor = tensor
+    def __init__(self, tensor, wcs=None, wave=None, form=None, recipe=None,
+                 scale=None, recipe_source=None):
+        self._tensor = tensor
         self.wcs = wcs
         self.wave = wave
+        self.form = form
+        self.recipe = recipe
+        self.scale = scale
+        # the recipe file this content was rebuilt from (_recipe_current)
+        self._recipe_source = recipe_source
         self._host = None
+        self._gen = 0
+
+    @property
+    def tensor(self):
+        return self._tensor
+
+    @tensor.setter
+    def tensor(self, value):
+        self._tensor = value
+        self._host = None
+        self.form = self.recipe = self.scale = self._recipe_source = None
+        # content generation: ProductStore.park_dirty rewrites it
+        self._gen += 1
 
     @property
     def shape(self):
-        return tuple(self.tensor.shape)
+        return tuple(self._tensor.shape)
 
     @property
     def data(self):
         if self._host is None:
-            self._host = self.tensor.cpu().numpy()
+            self._host = self._tensor.cpu().numpy()
         return self._host
+
+    @data.setter
+    def data(self, value):
+        self.tensor = torch.as_tensor(np.asarray(value)).to(
+            self._tensor.device)
+
+    def write(self, filename):
+        """Write the cube in its form (no recipe: see ``_save_cube``); a
+        compact form is quantized on the device, so only int16 values or
+        the nonzero entries' pairs come to the host."""
+        form = stored_form(self.form)
+        dhdr = data_header(self.shape, self.wcs, self.wave)
+        if form == "sparse":
+            idx, q, scale = sparse_i16(self._tensor, self.scale)
+            write_sparse(filename, idx.cpu().numpy(), q.cpu().numpy(), scale,
+                         self.shape, fitsio.Header(), dhdr)
+        elif form == "int16":
+            q, scale = encode_i16(self._tensor, self.scale)
+            write_int16(filename, q.cpu().numpy(), scale, fitsio.Header(),
+                        dhdr)
+        else:
+            self.to_cube().write(filename)
 
     def subcube(self, center, size, unit_center=None):
         """The host ``Cube`` of one (Nz, size, size) window of the tensor.
@@ -88,8 +165,8 @@ class TensorCube:
         size = int(size)
         y0, x0 = cutout_window(y, x, size)
         ctr = torch.tensor([[y0 + size // 2], [x0 + size // 2]],
-                           device=self.tensor.device)
-        data = gather_windows(self.tensor, ctr[0], ctr[1], size,
+                           device=self._tensor.device)
+        data = gather_windows(self._tensor, ctr[0], ctr[1], size,
                               0.0)[0].cpu().numpy()
         ny, nx = self.shape[1:]
         iy, ix = np.arange(y0, y0 + size), np.arange(x0, x0 + size)
@@ -105,19 +182,23 @@ class TensorCube:
         """The host ``Cube`` of the tensor, as the session file stores it
         (no mask: every value is kept).  The host copy is not cached."""
         data = (self._host if self._host is not None
-                else self.tensor.cpu().numpy())
+                else self._tensor.cpu().numpy())
         return Cube(data=data, mask=False, wcs=self.wcs, wave=self.wave,
                     copy=False)
 
     def __repr__(self):
-        return (f"<TensorCube {self.shape} {self.tensor.dtype} on "
-                f"{self.tensor.device}>")
+        return (f"<TensorCube {self.shape} {self._tensor.dtype} on "
+                f"{self._tensor.device}>")
 
 
 def _save_cube(obj, path):
-    if isinstance(obj, TensorCube):
-        obj = obj.to_cube()
-    obj.write(path)
+    """Park a cube product: its recipe file when it has one and recipes
+    are on, else the cube in its form."""
+    recipe = getattr(obj, "recipe", None)
+    if recipe is not None and recipes_enabled():
+        recipe(path)
+    else:
+        obj.write(path)
 
 
 class Format(NamedTuple):
@@ -167,6 +248,9 @@ class ProductStore:
         self.spec = dict(spec)
         self._slots = {}
         self._clean = {}  # name -> (id, gen) recorded at fetch time
+        # reader of a recipe-form cube file (recipes.py) against the
+        # owning session's raw data; returns None for any other file
+        self.resolve = None
         # loader of a fetched cube product: the owning step puts the host
         # Cube back on the session's device as a TensorCube
         self.upload = None
@@ -198,9 +282,8 @@ class ProductStore:
         if isinstance(value, Parked):
             if not os.path.isfile(value.path):
                 return None
-            kind = self.spec[name]
-            value = FORMATS[kind].load(value.path)
-            if kind == "cube" and self.upload is not None:
+            value = self._read(name, value.path)
+            if self.spec[name] == "cube" and self.upload is not None:
                 value = self.upload(value)
             self._slots[name] = value
             # freshly read == file content; data setters bump _gen, so
@@ -208,9 +291,28 @@ class ProductStore:
             self._clean[name] = (id(value), getattr(value, "_gen", None))
         return value
 
+    def _read(self, name, path):
+        """The host object of a session file (a recipe through
+        ``resolve``)."""
+        kind = self.spec[name]
+        loaded = None
+        if kind == "cube" and self.resolve is not None:
+            loaded = self.resolve(path)
+        return FORMATS[kind].load(path) if loaded is None else loaded
+
+    @staticmethod
+    def _recipe_current(value, path):
+        """True when ``value`` was rebuilt from the recipe file at ``path``
+        (a resumed fetch): re-parking it would serialize the dense cube
+        over its own still-valid generator file."""
+        return (getattr(value, "_recipe_source", None) == path
+                and os.path.isfile(path))
+
     def _park(self, name, directory):
         path = self.file_for(name, directory)
-        FORMATS[self.spec[name]].save(self._slots[name], path)
+        value = self._slots[name]
+        if not self._recipe_current(value, path):
+            FORMATS[self.spec[name]].save(value, path)
         self._slots[name] = Parked(path)
         self._clean.pop(name, None)
 
@@ -250,11 +352,12 @@ class ProductStore:
 
     def hold_all(self):
         """Mark every product as new content, reading the parked ones back
-        into memory (a cube as its host ``Cube``), so that a write into an
-        erased folder writes them all again."""
+        into memory (a cube as its host ``Cube``, a recipe as its lazy
+        rebuild), so that a write into an erased folder writes them all
+        again, each in its form."""
         for name, value in self._slots.items():
             if isinstance(value, Parked) and os.path.isfile(value.path):
-                self._slots[name] = FORMATS[self.spec[name]].load(value.path)
+                self._slots[name] = self._read(name, value.path)
         self._clean.clear()
 
     def point_at(self, directory):

@@ -2,12 +2,16 @@
 
 Port of :mod:`origin_tpu.pipeline.session`: ``ORIGIN.init``,
 ``step01_preprocessing`` .. ``step11_save_sources``, and the checkpoint
-(``write``, ``load`` and its fork) in the JAX package's dense session
-format, so that a session written by either package loads in the other
-(the JAX package's with ``ORIGIN_TPU_STORE_RECIPES=0``,
-``ORIGIN_TPU_STORE_SPARSE=0`` and ``ORIGIN_TPU_STORE_INT16=0``).  The
-reference dialect is not ported yet and raises
-:class:`NotImplementedError` naming its ROADMAP.md item.
+(``write``, ``load`` and its fork) in the JAX package's session format, so
+that a session written by either package loads in the other.  Cube
+products are stored in the JAX package's default forms (recipe files for
+cube_std, cont_dct and cube_faint, scaled-int16 images for the two
+correlation cubes, sparse scaled-int16 tables for the four local-extrema
+cubes; see :mod:`.products`), and ``ORIGIN_TPU_STORE_RECIPES=0``,
+``ORIGIN_TPU_STORE_INT16=0``, ``ORIGIN_TPU_STORE_SPARSE=0`` and
+``ORIGIN_TPU_CORREL_WIRE=f32`` turn them off as there.  The reference
+dialect is not ported yet and raises :class:`NotImplementedError` naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -209,7 +213,7 @@ class ORIGIN:
     @classmethod
     def load(cls, folder, newname=None, loglevel=None, device="cuda"):
         """Restore a saved session, written by this package or by the JAX
-        package in its dense form; optionally fork it under a new name.
+        package; optionally fork it under a new name.
 
         ``device`` is explicit, as for :meth:`init`.  The cube products
         come back on it at their first fetch.
@@ -311,8 +315,8 @@ class ORIGIN:
         ``<path or self.path>/<self.name>``.
 
         ``path`` moves the session there (copying its folder); ``erase``
-        deletes the folder first.  Every cube product is written as a
-        dense file of its host copy, and parking it frees its device
+        deletes the folder first.  Every cube product is written in its
+        form (see :mod:`.products`), and parking it frees its device
         memory.  ``compat='reference'`` (the reference package's dialect)
         is not ported yet.
         """

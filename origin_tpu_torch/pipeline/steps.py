@@ -2,9 +2,11 @@
 
 Port of :mod:`origin_tpu.pipeline.steps`: the same parameters, products
 and host logic, with the cube-sized math on the session's torch device
-(:class:`.engine.TorchEngine`).  A resumed session's parked cube products
-come back on the session's device at their first fetch
-(:meth:`Step._upload_cube`), so its steps take the same device paths as an
+(:class:`.engine.TorchEngine`).  Each cube product is stored in the JAX
+package's default form (``forms``, and the recipes of steps 01 and 04).  A
+resumed session's parked cube products come back on the session's device
+at their first fetch (:meth:`Step._load_recipe_product`,
+:meth:`Step._upload_cube`), so its steps take the same device paths as an
 uninterrupted run.  The JAX package's TPU-link machinery (device drops,
 prefetches, background parking, the lazy re-upload of a resumed session's
 detection cubes) is not ported.
@@ -51,6 +53,7 @@ from ..ops.lines import estimation_line_arrays
 from ..ops.purity import compute_threshold_purity_pair
 from ..ops.stats import compute_thresh_gaussfit, o2test
 from .products import ProductStore, TensorCube, format_catalog
+from .recipes import is_recipe_file, load_recipe, recipe_writer
 
 __all__ = [
     "Preprocessing",
@@ -88,7 +91,9 @@ class Step:
     """One pipeline stage bound to an ORIGIN session.
 
     Subclasses declare ``name`` / ``desc``, ``products`` (product name ->
-    kind) and ``depends_on``, and implement ``run(orig, **params)``.
+    kind), ``forms`` (cube product name -> its compact form, see
+    :func:`.products.stored_form`) and ``depends_on``, and implement
+    ``run(orig, **params)``.
     Calling the step records its effective parameters, checks its
     dependencies, times the run and tracks a :class:`Status`.  Products are
     published with :meth:`put` and read back as attributes, whether live
@@ -98,6 +103,7 @@ class Step:
     name = ""
     desc = ""
     products = {}
+    forms = {}
     depends_on = ()
 
     def __init__(self, orig, idx, param):
@@ -106,6 +112,7 @@ class Step:
         self.idx = idx
         self.method_name = f"step{idx:02d}_{self.name}"
         self.store = ProductStore(self.products)
+        self.store.resolve = self._load_recipe_product
         self.store.upload = self._upload_cube
         meta = param.setdefault(self.name, {})
         meta.setdefault("stepidx", idx)
@@ -117,12 +124,30 @@ class Step:
             f"<{type(self).__name__} [{self.idx:02d}] {self.status.name}>"
         )
 
+    def _load_recipe_product(self, path):
+        """Session-aware reader of a recipe-form cube product (None for
+        any other file): lazy, so that only a full fetch rebuilds the
+        dense cube, against this session's raw data."""
+        if not is_recipe_file(path):
+            return None
+        cube = load_recipe(path, orig=self.orig, lazy=True)
+        cube._recipe_source = path  # park skips rewriting this file
+        return cube
+
     def _upload_cube(self, cube):
         """A cube product read back from its session file, on the
-        session's device (its first fetch)."""
+        session's device (its first fetch).  It keeps its file's form: the
+        recipe, or the scale of a compact file (see ``TensorCube``)."""
         tensor = torch.from_numpy(np.ascontiguousarray(cube.data))
+        wire = getattr(cube, "_wire16", None)
+        form = scale = None
+        if wire is not None:
+            form = "int16" if wire.pairs is None else "sparse"
+            scale = wire.scale
         return TensorCube(tensor.to(self.orig.engine.device),
-                          wcs=self.orig.wcs, wave=self.orig.wave)
+                          wcs=self.orig.wcs, wave=self.orig.wave, form=form,
+                          scale=scale, recipe=getattr(cube, "recipe", None),
+                          recipe_source=getattr(cube, "_recipe_source", None))
 
     def __getattr__(self, name):
         # products read as attributes, materializing parked files on demand
@@ -188,10 +213,19 @@ class Step:
         """Publish a product (must be declared in ``products``)."""
         self.store.stash(name, value)
 
-    def store_cube_dev(self, name, tensor):
-        """Publish a device-resident cube product."""
+    def store_cube_dev(self, name, tensor, recipe=None):
+        """Publish a device-resident cube product, in its declared form;
+        ``recipe`` is the writer of its recipe file."""
         self.put(name, TensorCube(tensor, wcs=self.orig.wcs,
-                                  wave=self.orig.wave))
+                                  wave=self.orig.wave,
+                                  form=self.forms.get(name), recipe=recipe))
+
+    def recipe(self, kind, payload):
+        """The writer of a recipe file of ``kind`` (``recipes.py``), or
+        None for a session made from an in-memory cube: a recipe is
+        rebuilt from the cube file it names."""
+        cubename = self.orig.param.get("cubename")
+        return recipe_writer(kind, payload, cubename) if cubename else None
 
     def store_image(self, name, data, **kwargs):
         self.put(name, Image(data=data, wcs=self.orig.wcs, mask=False,
@@ -230,6 +264,7 @@ class Preprocessing(Step):
         segmap_cont="image", segmap_merged="image",
         cube_std_local_min="cube", cube_std_local_max="cube",
     )
+    forms = dict(cube_std_local_min="sparse", cube_std_local_max="sparse")
 
     def run(self, orig, dct_order=10, dct_approx=False, pfasegcont=0.01,
             pfasegres=0.01, local_max_size=3, bins="fd"):
@@ -244,9 +279,13 @@ class Preprocessing(Step):
         info("DCT + standardization + local extrema (on device)")
         dev, host = orig.engine.preprocess(dct_order, dct_approx,
                                            local_max_size)
+        payload = (host["coef"], host["mean_z"], dct_order)
         for name in ("cube_std", "cube_std_local_max", "cube_std_local_min",
                      "cont_dct"):
-            self.store_cube_dev(name, dev[name])
+            kind = dict(cube_std="dct_std", cont_dct="dct_cont").get(name)
+            self.store_cube_dev(
+                name, dev[name],
+                recipe=kind and self.recipe(kind, payload))
         self.store_image("ima_std", host["ima_std"])
         self.store_image("ima_dct", host["ima_dct"])
         info("cube_std / cont_dct and their images ready")
@@ -388,7 +427,7 @@ class ComputeGreedyPCA(Step):
             "per-area thresholds: %s", " ".join("%.2f" % t for t in thr)
         )
         self.logger.info("greedy PCA over the zones (device-resident)")
-        faint, mapo2, nstop = orig.engine.greedy_pca_by_area(
+        faint, mapo2, nstop, factors = orig.engine.greedy_pca_by_area(
             orig.areamap.data, thr, orig.testO2,
             noise_population=Noise_population, itermax=itermax,
         )
@@ -396,7 +435,8 @@ class ComputeGreedyPCA(Step):
             self.logger.warning(
                 "iteration cap (%d) hit in %d zone(s)", itermax, nstop
             )
-        self.store_cube_dev("cube_faint", faint)
+        self.store_cube_dev("cube_faint", faint,
+                            recipe=self.recipe("pca_faint", factors))
         self.store_image("mapO2", mapo2)
         self.logger.info(
             "cube_faint / mapO2 ready (nuisance-removed signal + per-spaxel "
@@ -419,6 +459,8 @@ class ComputeTGLR(Step):
         cube_local_min="cube", cube_local_max="cube",
         maxmap="image", minmap="image",
     )
+    forms = dict(cube_correl="int16", cube_correl_min="int16",
+                 cube_local_min="sparse", cube_local_max="sparse")
     depends_on = ("compute_greedy_PCA",)
 
     def run(self, orig, size=3, ncpu=1, pcut=1e-8, pmeansub=True):

@@ -518,13 +518,14 @@ def test_cuda_tensor_cube_subcube_matches_cpu(cuda, size):
         assert tuple(a.wcs.crpix) == tuple(b.wcs.crpix)
 
 
-@pytest.mark.gpu
-def test_cuda_session_resumes_after_step04(cuda, tmp_path):
-    """The minicube written after step 04 on the card and loaded there:
-    step 05 launches the sweep kernel on the cube_faint read back from the
-    session file, and Cat0/Cat1 and the thresholds equal those of a run
-    that never stopped."""
-    from origin_tpu_torch.pipeline.products import TensorCube
+STORE_KNOBS = ("ORIGIN_TPU_STORE_RECIPES", "ORIGIN_TPU_STORE_SPARSE",
+               "ORIGIN_TPU_STORE_INT16", "ORIGIN_TPU_CORREL_WIRE")
+
+
+def _minicube_resume(tmp_path):
+    """(the minicube's steps 01-07 on the card, the session written after
+    its step 04, loaded on the card, with steps 05-07 run from it, the
+    sweep's launches in those steps)."""
     from origin_tpu_torch.pipeline.session import ORIGIN
     from tools_torch.synthetic import make_minicube, make_segmap
 
@@ -553,7 +554,24 @@ def test_cuda_session_resumes_after_step04(cuda, tmp_path):
     resumed = ORIGIN.load(str(tmp_path / "b"), device="cuda")
     spectral_sweep.launches = 0
     steps(resumed, back)
-    assert spectral_sweep.launches > 0
+    launches = spectral_sweep.launches
+    for o in (full, resumed):
+        o.close_logfile()
+    return full, resumed, launches
+
+
+@pytest.mark.gpu
+def test_cuda_session_resumes_after_step04(cuda, tmp_path, monkeypatch):
+    """The minicube written after step 04 on the card in dense files and
+    loaded there: step 05 launches the sweep kernel on the cube_faint read
+    back from the session file, and Cat0/Cat1 and the thresholds equal
+    those of a run that never stopped."""
+    from origin_tpu_torch.pipeline.products import TensorCube
+
+    for knob in STORE_KNOBS[:3]:
+        monkeypatch.setenv(knob, "0")
+    full, resumed, launches = _minicube_resume(tmp_path)
+    assert launches > 0
     faint = resumed.steps["compute_greedy_PCA"].store.peek("cube_faint")
     assert isinstance(faint, TensorCube) and faint.tensor.is_cuda
     for key in ("threshold", "threshold_std"):
@@ -564,5 +582,64 @@ def test_cuda_session_resumes_after_step04(cuda, tmp_path):
         for col in a.colnames:
             np.testing.assert_array_equal(np.asarray(a[col]),
                                           np.asarray(b[col]), err_msg=col)
-    for o in (full, resumed):
-        o.close_logfile()
+
+
+@pytest.mark.gpu
+def test_cuda_compact_session_resumes_after_step04(cuda, tmp_path,
+                                                   monkeypatch):
+    """The same in the default compact files: cube_faint comes back from
+    its recipe, rebuilt on the host, so the sweep kernel still launches on
+    it and Cat0/Cat1 keep the counts of the CPU test
+    (tests/test_torch_compact_session.py), the thresholds within 1e-3."""
+    from origin_tpu_torch import fitsio
+
+    for knob in STORE_KNOBS:
+        monkeypatch.delenv(knob, raising=False)
+    full, resumed, launches = _minicube_resume(tmp_path)
+    assert launches > 0
+    hdr = fitsio.getheader(str(tmp_path / "b" / "cube_faint.fits"))
+    assert hdr["ORITPURE"] == "pca_faint"
+    assert resumed.cube_faint.tensor.is_cuda
+    for key in ("threshold", "threshold_std"):
+        assert abs(resumed.param[key] - full.param[key]) <= 1e-3
+    assert (len(resumed.Cat0), len(resumed.Cat1)) == (
+        len(full.Cat0), len(full.Cat1)) == (15, 14)
+
+
+# the encoders' cases (tests/test_torch_store.py has them against the JAX
+# package on the CPU): sub-half-step extrema, an all-zero cube, odd shapes
+# and one past the dense encoder's slab of 256 channels
+def _quant_case(name):
+    rng = np.random.default_rng(12)
+    if name == "all_zero":
+        return np.zeros((9, 4, 5), np.float32)
+    shape = dict(sub_half_step=(40, 6, 7), odd_7x3x5=(7, 3, 5),
+                 odd_1x1x1=(1, 1, 1), odd_1x9x1=(1, 9, 1),
+                 slabs_700x20x30=(700, 20, 30))[name]
+    x = np.where(rng.random(shape) < 0.2, rng.standard_normal(shape) * 8, 0)
+    if name == "sub_half_step":
+        x.ravel()[[3, 50, 51, 400]] = [1e-7, -3e-6, 2e-4, -1e-30]
+    return x.astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ("sub_half_step", "all_zero", "odd_7x3x5",
+                                  "odd_1x1x1", "odd_1x9x1",
+                                  "slabs_700x20x30"))
+def test_cuda_encoders_match_cpu(cuda, name):
+    """encode_i16 and sparse_i16 on the card give the CPU's bits: division
+    and rounding are correctly rounded on both."""
+    from origin_tpu_torch.ops.quant import encode_i16, sparse_i16
+
+    x = torch.from_numpy(_quant_case(name))
+    q, scale = encode_i16(x)
+    qc, scale_c = encode_i16(x.to(cuda))
+    assert scale_c == scale
+    np.testing.assert_array_equal(qc.cpu().numpy(), q.numpy())
+    q2, _ = encode_i16(x.to(cuda), scale=scale)
+    np.testing.assert_array_equal(q2.cpu().numpy(), q.numpy())
+    idx, vals, scale = sparse_i16(x)
+    idxc, valsc, scale_c = sparse_i16(x.to(cuda))
+    assert scale_c == scale and idxc.dtype == idx.dtype == torch.int32
+    np.testing.assert_array_equal(idxc.cpu().numpy(), idx.numpy())
+    np.testing.assert_array_equal(valsc.cpu().numpy(), vals.numpy())

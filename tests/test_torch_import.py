@@ -74,6 +74,21 @@ def test_port_runs_without_jax_or_yaml(tmp_path):
                 for fn in (orig.name + ".yaml", "cube_psf.fits",
                            *(n + ".fits" for n in CUBE_PRODUCTS)):
                     assert os.path.isfile(os.path.join(orig.outpath, fn)), fn
+                # the closing write stores the JAX package's compact kinds
+                from origin_tpu_torch import fitsio
+                kinds = {{}}
+                for n in CUBE_PRODUCTS:
+                    fn = os.path.join(orig.outpath, n + ".fits")
+                    phdr, dhdr = (fitsio.getheader(fn, i) for i in (0, 1))
+                    kinds[n] = (phdr.get("ORITPURE") or phdr.get("ORITPUSP")
+                                or ("int16" if "BSCALE" in dhdr
+                                    else dhdr["BITPIX"]))
+                sparse = dict.fromkeys(CUBE_PRODUCTS[2:4] + CUBE_PRODUCTS[8:],
+                                       "extrema16")
+                assert kinds == dict(
+                    sparse, cube_std="dct_std", cont_dct="dct_cont",
+                    cube_faint="pca_faint", cube_correl="int16",
+                    cube_correl_min="int16", cube_profile=8), kinds
             orig.close_logfile()
         assert counts == {{"highest": (15, 14), "bf16x3": (15, 14),
                            "cat3": (14, 13), "files": (26, 13)}}, counts
