@@ -88,7 +88,26 @@ f. the compact resume: session B2 runs steps 01-04 of the field file and
    hold each int16 or sparse product as the encoder's integers and scale
    of the live tensor it was written from, bit for bit, each value
    decoded within half a step of the live one (HALF_STEP_TOL) but the
-   extrema that the sparse form clamps to one step.
+   extrema that the sparse form clamps to one step;
+g. the session's user surface on the card, on the field file at
+   ``highest``: the CLI (``origin_tpu_torch.__main__.main``, in this
+   process) runs the field with phase 5's parameters, with the counters
+   set to 0 just before: the float32 sweep must launch and the CLI's
+   Cat0, Cat1 and Cat3 equal phase 5's cold run bit for bit; its
+   ``status`` lists the 11 steps as DUMPED and ``info`` prints the log; a
+   fresh session's steps 01-04 are exported with ``write(...,
+   compat="reference")`` and the export, loaded on the card, runs steps
+   05-11 (the float32 sweep must launch on the exported cube_faint; the
+   thresholds, Cat0-Cat3 and file counts as in phase e); the CLI's compact
+   session, loaded on the card, is exported the same way (its first
+   fetches and the export timed apart) and each dense cube file must equal
+   what the loaded session's fetch gives, bit for bit; on that session the
+   first Cat3 source with two lines or more is split and merged back to
+   the original tables, and ``update_masks`` (on the resident detection
+   cubes) and ``update_sources`` refresh the first three sources, whose
+   masks must equal step 10's files and whose source files step 11's, by
+   the rules of tests/test_torch_pipeline.py's
+   ``assert_same_source_files``.
 
 In phases 4, 5 and d, steps 05-07 are then re-run with the plain versions
 in place of the kernels (after the step 08-11 checks: the re-run replaces
@@ -107,8 +126,8 @@ line of the float64 ARPACK oracle of step 04 (tools_torch/field_step04.py).
 Every launch counter is set to 0 just before a main-path run and read
 just after it: phase 5's cold run for the float32 sweep, phase d's field
 run for the spatial kernel and the bf16x3 sweep, phase c's entry calls for
-the spaxel-major sweeps, phase e's and phase f's resumed steps 05-11 for
-the float32 sweep again.  The next-to-last line of stdout is a JSON record
+the spaxel-major sweeps, phase e's and phase f's resumed steps 05-11 and
+phase g's CLI run and resumed export for the float32 sweep again.  The next-to-last line of stdout is a JSON record
 of the kernels, the line before it the card's name and power limit, the
 last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
@@ -1448,6 +1467,340 @@ def phase_compact(field, ref):
                 held=held, **summary)
 
 
+# -- phase g ------------------------------------------------------------------
+def _cli(argv):
+    """``python -m origin_tpu_torch`` in this process: (rc, stdout, wall
+    with the device drained at both ends)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from origin_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def _dense_cube_file(path):
+    """The data of a dense cube file, or None for a recipe, sparse or
+    scaled-int16 one."""
+    from origin_tpu_torch import fitsio
+
+    phdr, dhdr = fitsio.getheader(path, 0), fitsio.getheader(path, 1)
+    if phdr.get("ORITPURE") or phdr.get("ORITPUSP") or "BSCALE" in dhdr:
+        return None
+    return fitsio.getdata(path)
+
+
+def _close_to_max(a, b, rel):
+    """|a - b| over b's largest finite magnitude (inf where the NaNs
+    differ)."""
+    import numpy as np
+
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    if a.shape != b.shape or not np.array_equal(np.isnan(a), np.isnan(b)):
+        return float("inf")
+    fin = np.isfinite(b)
+    scale = np.abs(b[fin]).max() if fin.any() else 1.0
+    return float(np.abs(a[fin] - b[fin]).max() / scale) if fin.any() else 0.0
+
+
+def _source_file_errors(got, want):
+    """Each extension of a refreshed source file against step 11's, by the
+    rules of tests/test_torch_pipeline.py (``assert_same_source_files``):
+    per rule, the largest error over its limit; any value above 1 fails."""
+    import numpy as np
+
+    worst = {}
+
+    def note(rule, err, limit):
+        worst[rule] = max(worst.get(rule, 0.0), err / limit)
+
+    for kind in ("cubes", "images", "spectra", "tables"):
+        if set(getattr(got, kind)) != set(getattr(want, kind)):
+            note("extensions", float("inf"), 1.0)
+            return worst
+    for key, cb in want.cubes.items():
+        ca = got.cubes[key]
+        if key == "MUSE_CUBE":
+            same = all(np.array_equal(getattr(ca, a), getattr(cb, a),
+                                      equal_nan=True) for a in ("data", "var"))
+            note("exact", 0.0 if same else float("inf"), 1.0)
+        else:  # ORI_CORREL / ORI_SNCUBE
+            note("detection cubes atol 1e-3", float(np.nanmax(np.abs(
+                np.asarray(ca.data, float) - np.asarray(cb.data, float)))),
+                 1e-3)
+    for key, ib in want.images.items():
+        ia = got.images[key]
+        if key.startswith("ORI_CORR_") or key == "ORI_MAXMAP":
+            note("detection cubes atol 1e-3", float(np.nanmax(np.abs(
+                np.asarray(ia.data, float) - np.asarray(ib.data, float)))),
+                 1e-3)
+        elif key == "MUSE_WHITE":
+            note("MUSE 1e-5 of max", _close_to_max(ia.data, ib.data, 1e-5),
+                 1e-5)
+        else:
+            note("exact", 0.0 if np.array_equal(ia.data, ib.data)
+                 else float("inf"), 1.0)
+    for key, sb in want.spectra.items():
+        sa = got.spectra[key]
+        for arr in ("data", "var"):
+            x, y = getattr(sa, arr), getattr(sb, arr)
+            if (x is None) != (y is None):
+                note("exact", float("inf"), 1.0)
+            if y is None:
+                continue
+            if key.startswith("MUSE_"):
+                note("MUSE 1e-5 of max", _close_to_max(x, y, 1e-5), 1e-5)
+            elif key.startswith("ORI_SPEC_"):
+                note("ORI_SPEC 1e-4 of max", _close_to_max(x, y, 1e-4), 1e-4)
+            else:
+                scale = max(1.0, float(np.nanmax(np.abs(y))))
+                note("ORI_CORR atol 2e-3", float(np.nanmax(np.abs(
+                    np.asarray(x, float) - np.asarray(y, float)))) / scale,
+                     2e-3)
+    tables = dict(LINES=(got.lines, want.lines),
+                  **{k: (got.tables[k], want.tables[k])
+                     for k in ("ORI_LINES", "ORI_CAT", "NB_PAR")})
+    for key, (ta, tb) in tables.items():
+        if ta.colnames != tb.colnames:
+            note("exact", float("inf"), 1.0)
+            continue
+        for col in tb.colnames:
+            x, y = np.asarray(ta[col]), np.asarray(tb[col])
+            if y.dtype.kind == "f":
+                ok = np.allclose(x, y, rtol=1e-4, atol=0, equal_nan=True)
+                note("tables rtol 1e-4", 0.0 if ok else float("inf"), 1.0)
+            else:
+                note("exact", 0.0 if np.array_equal(x, y)
+                     else float("inf"), 1.0)
+    return worst
+
+
+def phase_surface(field, ref):
+    """The session's user surface on the card: the CLI's field run (held to
+    phase 5's cold run bit for bit), its status and info, a reference
+    export of a live session after step 04 resumed on the card, a
+    reference export of the CLI's compact session (each dense cube file
+    held to the loaded session's fetch), and the catalog edits, masks and
+    source files refreshed on the loaded session."""
+    import numpy as np
+    import torch
+
+    from origin_tpu_torch.artifacts import (
+        Source, merge_sources, split_source, update_masks, update_sources,
+    )
+    from origin_tpu_torch.core import Image, Table
+    from origin_tpu_torch.pipeline.products import TensorCube
+    from origin_tpu_torch.pipeline.session import ORIGIN
+    from origin_tpu_torch.pipeline.steps import Status
+
+    field_fn, _ = field
+    t_phase = time.perf_counter()
+    out = {}
+    exports = os.path.join(WORK, "exports")
+    shutil.rmtree(exports, ignore_errors=True)
+    os.makedirs(exports)
+
+    # 1. the CLI's run of the field, as phase 5 runs it
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    rc, _, cli_s = _cli(["run", field_fn, "--device", "cuda", "--purity",
+                         "0.8", "--name", "cli", "--path", WORK,
+                         "--loglevel", "WARNING"])
+    counts = read_counts()
+    folder = os.path.join(WORK, "cli")
+    check(rc == 0, f"CLI run of the field: rc {rc}, {cli_s:.3f} s")
+    log(f"  launches in the CLI run: {counts}")
+    check(counts["toeplitz_sweep"] > 0, "the CLI run launched toeplitz_sweep "
+          f"({counts['toeplitz_sweep']} launches)")
+    cats = {n: Table.read(os.path.join(folder, n + ".fits"))
+            for n in ("Cat0", "Cat1", "Cat3_lines", "Cat3_sources")}
+    for name, cat in cats.items():
+        check(_same_rows(cat, ref[name], 0.0), f"the CLI's {name} "
+              f"({len(cat)} rows) equals phase 5's cold run bit for bit")
+    out.update(cli_s=cli_s, launches=counts,
+               counts={n: len(c) for n, c in cats.items()})
+
+    # 2. status and info
+    rc_s, status, _ = _cli(["status", folder])
+    rc_i, info, _ = _cli(["info", folder])
+    steps = [ln for ln in status.splitlines() if ln.startswith("- ")]
+    check(rc_s == 0 and len(steps) == 11
+          and all(ln.endswith(": DUMPED") for ln in steps),
+          "CLI status: rc 0, the 11 steps DUMPED")
+    check(rc_i == 0 and "Step 11 - Save sources" in info
+          and "finished" not in info, f"CLI info: rc 0, {len(info)} "
+          "characters of log without the completion lines")
+
+    # 3. a live session after step 04, exported in the reference dialect
+    # and resumed on the card
+    b = ORIGIN.init(field_fn, name="live", path=WORK, loglevel="WARNING",
+                    device="cuda")
+    _run_steps(b, STEP_KWARGS, STEP_NAMES[:4])
+    live_dir = os.path.join(exports, "live")
+    os.makedirs(live_dir)
+    export = []
+    export_s = sync_wall(lambda: export.append(
+        b.write(path=live_dir, compat="reference")))
+    files, nbytes = _session_files(export[0])
+    b.close_logfile()
+    shutil.rmtree(b.outpath, ignore_errors=True)
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c = ORIGIN.load(export[0], device="cuda")
+    load_s = time.perf_counter() - t0
+    log(f"  live export after step 04: {export_s:.3f} s, {files} files, "
+        f"{nbytes} bytes, {nbytes / export_s / 1e9:.3f} GB/s; load "
+        f"{load_s:.3f} s")
+    check([s.status for s in c.steps.values()][:5]
+          == [Status.DUMPED] * 4 + [Status.NOTRUN],
+          "the loaded export has steps 01-04 DUMPED")
+    reset_counts()
+    walls_c = _run_steps(c, STEP_KWARGS, STEP_NAMES[4:])
+    counts_c = read_counts()
+    log("  steps 05-11 of the loaded export: " + " ".join(
+        f"{k} {v:.3f}s" for k, v in walls_c.items())
+        + f"  total {sum(walls_c.values()):.3f}s; launches {counts_c}")
+    check(counts_c["toeplitz_sweep"] > 0, "step 05 of the loaded export "
+          f"launched toeplitz_sweep ({counts_c['toeplitz_sweep']} "
+          "launches) on the exported cube_faint")
+    check(c.param["threshold"] == ref["threshold"]
+          and c.param["threshold_std"] == ref["threshold_std"],
+          f"the loaded export's thresholds {c.param['threshold']:.6f} / "
+          f"{c.param['threshold_std']:.6f} equal the uninterrupted run's")
+    for name in CATALOGS:
+        got, want = getattr(c, name), ref[name]
+        check(_same_rows(got, want, RESUME_RTOL), f"the loaded export's "
+              f"{name} ({len(got)} rows) equals the uninterrupted run's "
+              f"row for row (integers exact, floats at rtol {RESUME_RTOL:g})")
+    check(_source_files(c)[:2] == ref["files"], "the loaded export wrote "
+          "as many mask and source files as the uninterrupted run")
+    c.close_logfile()
+    del c
+    shutil.rmtree(live_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(live_export_s=export_s, live_export_files=files,
+               live_export_bytes=nbytes, live_load_s=load_s,
+               live_walls_c=walls_c, live_launches=counts_c)
+
+    # 4. the CLI's compact session loaded and exported
+    t0 = time.perf_counter()
+    d = ORIGIN.load(folder, device="cuda")
+    load_d = time.perf_counter() - t0
+    log("  the CLI run's steps (timestat): " + "; ".join(
+        f"{r['Step']} {r['Exec Time']}" for r in d.timestat(table=True)))
+    kinds = _product_kinds(folder, PRODUCT_KINDS)
+    check(kinds == PRODUCT_KINDS, "the CLI's session holds the ten default "
+          "kinds (3 recipes, 4 sparse, 2 int16, 1 uint8)")
+    fetch = _first_fetches(d, tuple(PRODUCT_KINDS))
+    compact_dir = os.path.join(exports, "compact")
+    os.makedirs(compact_dir)
+    export = []
+    write_s = sync_wall(lambda: export.append(
+        d.write(path=compact_dir, compat="reference")))
+    files, nbytes = _session_files(export[0])
+    fetch_s = sum(sum(v) for v in fetch.values())
+    log(f"  compact export: load {load_d:.3f} s; first fetches "
+        f"{fetch_s:.3f} s ({_fetch_line(fetch)}); the export after them "
+        f"{write_s:.3f} s ({files} files, {nbytes} bytes, "
+        f"{nbytes / write_s / 1e9:.3f} GB/s); total {fetch_s + write_s:.3f}"
+        " s")
+    same = {}
+    for name in PRODUCT_KINDS:
+        got = _dense_cube_file(os.path.join(export[0], name + ".fits"))
+        want = getattr(d, name).tensor.cpu().numpy()
+        same[name] = (got is not None and got.dtype == want.dtype
+                      and np.array_equal(got, want, equal_nan=True))
+    check(all(same.values()), "each dense cube file of the compact export "
+          f"equals the loaded session's fetch bit for bit ({same})")
+    shutil.rmtree(export[0], ignore_errors=True)
+    out.update(compact_load_s=load_d, compact_fetch_s=fetch,
+               compact_export_s=write_s, compact_export_files=files,
+               compact_export_bytes=nbytes)
+
+    # 5. the catalog edits and the refreshed masks and source files
+    lines, sources = d.Cat3_lines, d.Cat3_sources
+    ids, nlines = np.unique(np.asarray(lines["ID"]), return_counts=True)
+    sid = int(ids[nlines >= 2][0])
+    edit_l, edit_s = lines.copy(), sources.copy()
+    nums = np.asarray(edit_l["num_line"])[np.asarray(edit_l["ID"]) == sid]
+    new_id = split_source(sid, [int(nums[0])], edit_s, edit_l)
+    split_rows = len(edit_s)
+    merged = merge_sources(sid, [new_id], edit_s, edit_l)
+    check(new_id is not None and split_rows == len(sources) + 1 and merged
+          and _same_rows(edit_l, lines, 0.0)
+          and _same_rows(edit_s, sources, 0.0),
+          f"source {sid} ({len(nums)} lines) split into {sid} and {new_id} "
+          "and merged back: the Cat3 tables equal the originals")
+    chosen = [int(i) for i in sources["ID"][:3]]
+    masks_dir = os.path.join(exports, "masks")
+    os.makedirs(masks_dir)
+    check(isinstance(d.cube_correl, TensorCube)
+          and d.cube_correl.tensor.is_cuda, "update_masks takes the "
+          "session's resident cube_correl on the card")
+    masks_s = sync_wall(lambda: update_masks(
+        chosen, lines, sources, d.FWHM_profiles, d.cube_correl,
+        d.threshold_correl, d.cube_std, d.threshold_std, d.segmap_label,
+        d.LBDA_FWHM_PSF, masks_dir, plot_problems=False))
+    equal = []
+    for i in chosen:
+        for kind in ("source", "sky"):
+            name = f"{kind}-mask-%05d.fits" % i
+            a = Image(os.path.join(masks_dir, name))
+            b = Image(os.path.join(folder, "masks", name))
+            equal.append(np.array_equal(a.data, b.data)
+                         and tuple(a.wcs.crpix) == tuple(b.wcs.crpix))
+    check(all(equal) and len(equal) == 6, f"update_masks of sources "
+          f"{chosen} on the card ({masks_s:.3f} s): the masks equal step "
+          "10's files exactly")
+    src_dir = os.path.join(exports, "sources")
+    os.makedirs(src_dir)
+    sources_s = sync_wall(lambda: update_sources(
+        chosen, sources, lines, d.param,
+        os.path.join(folder, "cube_correl.fits"),
+        os.path.join(folder, "cube_std.fits"),
+        d.param["mask_filename_tpl"], d.param["skymask_filename_tpl"],
+        os.path.join(folder, "spectra.fits"),
+        {"LABEL": d.segmap_label, "MERGED": d.segmap_merged}, "0.1",
+        d.FWHM_profiles, os.path.join(src_dir, "source-%0.5d.fits")))
+    worst = {}
+    for i in chosen:
+        name = "source-%05d.fits" % i
+        errs = _source_file_errors(
+            Source.from_file(os.path.join(src_dir, name)),
+            Source.from_file(os.path.join(folder, "sources", name)))
+        for rule, err in errs.items():
+            worst[rule] = max(worst.get(rule, 0.0), err)
+    check(worst and max(worst.values()) <= 1.0, "update_sources of sources "
+          f"{chosen} ({sources_s:.3f} s): every extension equals step 11's "
+          "file within the pipeline tests' tolerances (largest error over "
+          "its limit: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + ")")
+    d.close_logfile()
+    del d
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(exports, ignore_errors=True)
+    shutil.rmtree(folder, ignore_errors=True)
+    out.update(split_merge_source=sid, update_ids=chosen,
+               update_masks_s=masks_s, update_sources_s=sources_s,
+               update_sources_worst=worst,
+               wall_s=time.perf_counter() - t_phase)
+    log(f"  phase g: {out['wall_s']:.1f} s")
+    return out
+
+
 # -- phase a ------------------------------------------------------------------
 def _spatial_problem(nz, ny, nx, nfields, dev, psf_size=25, seed=3):
     """The field's FSF (the synthetic cubes' Moffat model) for nz channels,
@@ -1783,6 +2136,9 @@ def main():
     log("[f] compact resume on cuda: field steps 01-04 in the default "
         "session files (B2), load (C2), steps 05-11")
     res["compact"] = phase_compact(field, reference)
+    log("[g] the user surface on cuda: the CLI's field run, status and "
+        "info, reference exports, source updates")
+    res["surface"] = phase_surface(field, reference)
     jaxed = sorted(m for m in sys.modules if m.split(".")[0] in
                    ("jax", "origin_tpu"))
     check(not jaxed, "nothing of JAX or of the JAX package was imported "

@@ -190,6 +190,23 @@ class TorchEngine:
             raise KeyError(f"no cube product {name!r} in this session")
         return obj.tensor
 
+    def release(self):
+        """Drop every device allocation this session's engine holds.
+
+        A process that runs several fields (the CLI's survey mode) calls
+        this once a field is finished (everything parked) or abandoned
+        after a failure: the engine's input tensors go, and so does every
+        live cube product (:meth:`ProductStore.release`: one read back
+        from its session file points at it again, one never written loses
+        its content).  On a CUDA device the allocator's cached blocks are
+        then returned, so the next field starts with the card's memory.
+        """
+        self._inputs.clear()
+        for step in self.orig.steps.values():
+            step.store.release(self.orig.outpath)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     # -- step 01 -----------------------------------------------------------
     def preprocess(self, dct_order=10, dct_approx=False, local_max_size=3):
         """DCT + standardization + std local extrema.

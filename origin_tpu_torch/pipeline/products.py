@@ -360,6 +360,18 @@ class ProductStore:
                 self._slots[name] = self._read(name, value.path)
         self._clean.clear()
 
+    def release(self, directory):
+        """Free the live device cubes: one unchanged since it was read
+        from its session file in ``directory`` is parked there again; any
+        other (never written, as an abandoned field's) loses its content
+        and reads as absent."""
+        for name, value in self._slots.items():
+            if isinstance(value, TensorCube):
+                clean = self._clean.pop(name, None) == (id(value),
+                                                       value._gen)
+                self._slots[name] = (Parked(self.file_for(name, directory))
+                                     if clean else None)
+
     def point_at(self, directory):
         """Mark every product as parked in ``directory`` (used on session
         restore; nothing is read until fetched)."""

@@ -9,13 +9,16 @@ cube_std, cont_dct and cube_faint, scaled-int16 images for the two
 correlation cubes, sparse scaled-int16 tables for the four local-extrema
 cubes; see :mod:`.products`), and ``ORIGIN_TPU_STORE_RECIPES=0``,
 ``ORIGIN_TPU_STORE_INT16=0``, ``ORIGIN_TPU_STORE_SPARSE=0`` and
-``ORIGIN_TPU_CORREL_WIRE=f32`` turn them off as there.  The reference
-dialect is not ported yet and raises :class:`NotImplementedError` naming
-its ROADMAP.md item.
+``ORIGIN_TPU_CORREL_WIRE=f32`` turn them off as there.  A session in the
+reference package's dialect (its python-tagged parameter file) loads, and
+``write(compat="reference")`` exports one (:mod:`.compat`).  The
+reporting methods (``info``, ``status``, ``timestat``, ``stat``) and the
+diagnostic plots (:class:`.plotting.PlotMixin`) are the JAX session's.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
 import glob
 import inspect
 import logging
@@ -34,30 +37,19 @@ from ..core.fsf import FieldsMap, read_fsf_from_header
 from ..core.profiles import (
     DICO_3FWHM, DICO_FWHM_2_12, default_dictionary_path, load_dictionary,
 )
+from ..core.table import Table
 from ..device import resolve_device
 from ..version import version as __version__
+from . import compat as compat_mod
 from . import steps as steps_mod
 from .engine import TorchEngine
 from .params import dump_params
+from .plotting import PlotMixin
 from .steps import Status
 
 __all__ = ["ORIGIN"]
 
 LOGGER_NAME = "origin_tpu_torch"
-
-#: ROADMAP.md section 1 items that port what is not here yet
-_LATER = {
-    "write(compat='reference')": "Session I/O",
-    "the reference dialect's parameter file": "Session I/O",
-}
-
-
-def _not_ported(name):
-    return NotImplementedError(
-        f"{name} is not ported to origin_tpu_torch yet (ROADMAP.md, "
-        f"section 1: '{_LATER[name]}', item 1c); use origin_tpu for it"
-    )
-
 
 def setup_logging(name=LOGGER_NAME, level="DEBUG", stream=None,
                   fmt="%(levelname)-05s: %(message)s"):
@@ -76,7 +68,7 @@ def setup_logging(name=LOGGER_NAME, level="DEBUG", stream=None,
     return logger
 
 
-class ORIGIN:
+class ORIGIN(PlotMixin):
     """ORIGIN session: blind emission-line detection on one datacube.
 
     Composed of the raw cube + variance, a dictionary of spectral profiles
@@ -212,8 +204,10 @@ class ORIGIN:
 
     @classmethod
     def load(cls, folder, newname=None, loglevel=None, device="cuda"):
-        """Restore a saved session, written by this package or by the JAX
-        package; optionally fork it under a new name.
+        """Restore a saved session, written by this package, by the JAX
+        package or by the reference package (its python-tagged parameter
+        file is decoded, :mod:`.compat`); optionally fork it under a new
+        name.
 
         ``device`` is explicit, as for :meth:`init`.  The cube products
         come back on it at their first fetch.
@@ -226,9 +220,12 @@ class ORIGIN:
 
         with open(f"{folder}/{name}.yaml") as stream:
             text = stream.read()
-        if "!!python/" in text:
-            raise _not_ported("the reference dialect's parameter file")
-        param = yaml.safe_load(text)
+        if compat_mod.looks_like_reference_yaml(text):
+            # the reference's python-tagged dialect, decoded into this
+            # schema (its product files have the same names)
+            param = compat_mod.loads_params(text)
+        else:
+            param = yaml.safe_load(text)
         if param.get("cubename") is None:
             raise ValueError(
                 f"session {folder} was made from an in-memory Cube "
@@ -317,13 +314,22 @@ class ORIGIN:
         ``path`` moves the session there (copying its folder); ``erase``
         deletes the folder first.  Every cube product is written in its
         form (see :mod:`.products`), and parking it frees its device
-        memory.  ``compat='reference'`` (the reference package's dialect)
-        is not ported yet.
+        memory.
+
+        With ``compat='reference'`` the session is instead exported in the
+        reference package's dialect (dense standard FITS products and its
+        python-tagged parameter file) into ``<path or self.path>/<name>``,
+        whose path is returned (see
+        :func:`.compat.export_reference_session`); the session itself is
+        not moved.
         """
         if compat is not None:
             if compat != "reference":
                 raise ValueError(f"unknown compat dialect: {compat!r}")
-            raise _not_ported("write(compat='reference')")
+            folder = os.path.join(path or self.path, self.name)
+            self.logger.info("Exporting reference-dialect session to %s",
+                             folder)
+            return compat_mod.export_reference_session(self, folder)
         self.logger.info("Writing...")
         if path is not None and path != self.path:
             if not os.path.exists(path):
@@ -399,7 +405,29 @@ class ORIGIN:
                 self._o2_files_stale = False
         self.logger.info("Current session saved in %s", self.outpath)
 
-    # -- logging -------------------------------------------------------------
+    # -- logging / reporting -------------------------------------------------
+    def info(self):
+        """Print the processing log (without the step-completion lines)."""
+        with open(self.logfile) as f:
+            for line in f:
+                if "finished" not in line:
+                    print(line, end="")
+
+    def status(self):
+        """Print the processing status of every step."""
+        for name, step in self.steps.items():
+            print(f"- {step.idx:02d}, {name}: {step.status.name}")
+
+    def set_loglevel(self, level):
+        """Set the console logging level."""
+        handler = next(
+            h for h in self.logger.handlers
+            if isinstance(h, logging.StreamHandler)
+            and not isinstance(h, RotatingFileHandler)
+        )
+        handler.setLevel(level)
+        self.param["loglevel"] = level
+
     def _setup_logfile(self, logger):
         self.logfile = os.path.join(self.outpath, self.name + ".log")
         self.file_handler = RotatingFileHandler(self.logfile, "a", 1000000, 1)
@@ -416,6 +444,76 @@ class ORIGIN:
             if self.file_handler in self.logger.handlers:
                 self.logger.handlers.remove(self.file_handler)
             self.file_handler = None
+
+    # -- summaries -----------------------------------------------------------
+    def timestat(self, table=False):
+        """Runtime per step; returns a Table when ``table`` is True."""
+        if table:
+            names, exdates, extimes = [], [], []
+            tot = 0.0
+            for step in self.steps.values():
+                if "execution_date" in step.meta:
+                    names.append(step.method_name)
+                    exdates.append(step.meta["execution_date"])
+                    t = step.meta["runtime"]
+                    tot += t
+                    extimes.append(str(_dt.timedelta(seconds=t)))
+            names.append("Total")
+            exdates.append("")
+            extimes.append(str(_dt.timedelta(seconds=tot)))
+            return Table(data=[names, exdates, extimes],
+                         names=["Step", "Exec Date", "Exec Time"])
+        tot = 0.0
+        for step in self.steps.values():
+            if "execution_date" in step.meta:
+                t = step.meta["runtime"]
+                tot += t
+                self.logger.info(
+                    "%s executed: %s run time: %s", step.method_name,
+                    step.meta["execution_date"], str(_dt.timedelta(seconds=t)),
+                )
+        self.logger.info(
+            "*** Total run time: %s", str(_dt.timedelta(seconds=tot))
+        )
+
+    def stat(self):
+        """Log the detection summary."""
+        d = self._get_stat()
+        self.logger.info(
+            "ORIGIN PCA pfa %.2f Back Purity: %.2f Threshold: %.2f "
+            "Bright Purity %.2f Threshold %.2f",
+            d["pca"], d["back_purity"], d["back_threshold"],
+            d["bright_purity"], d["bright_threshold"],
+        )
+        self.logger.info("Nb of detected lines: %d", d["tot_nlines"])
+        self.logger.info(
+            "Nb of sources Total: %d Background: %d Cont: %d",
+            d["tot_nsources"], d["back_nsources"], d["cont_nsources"],
+        )
+        self.logger.info(
+            "Nb of sources detected in faint (after PCA): %d "
+            "in std (before PCA): %d",
+            d["faint_nsources"], d["bright_nsources"],
+        )
+
+    def _get_stat(self):
+        p = self.param
+        cat = self.Cat3_sources
+        seg = np.asarray(cat["seg_label"])
+        comp = np.asarray(cat["comp"])
+        return dict(
+            pca=p["compute_PCA_threshold"]["params"]["pfa_test"],
+            back_purity=p["purity"],
+            back_threshold=p["threshold"],
+            bright_purity=p["purity_std"],
+            bright_threshold=p["threshold_std"],
+            tot_nlines=len(self.Cat3_lines),
+            tot_nsources=len(cat),
+            back_nsources=int(np.sum(seg == 0)),
+            cont_nsources=int(np.sum(seg > 0)),
+            faint_nsources=int(np.sum(comp == 0)),
+            bright_nsources=int(np.sum(comp == 1)),
+        )
 
     # -- parameters ---------------------------------------------------------
     @property

@@ -534,6 +534,16 @@ class Detection(Step):
     desc = "Thresholding and spatio-spectral merging"
     products = dict(Cat0="table", Cat1="table", segmap_label="image")
 
+    def det_correl_min(self, thresh=None):
+        """3D positions of detections in correl_min: the ``np.where`` index
+        tuple, in C order, of ``cube_local_min > thresh`` (the session's
+        correl threshold when ``thresh`` is None), found on the device."""
+        if thresh is None:
+            thresh = self.orig.param["threshold"]
+        zyx, _, _ = self.orig.engine.detections_above("cube_local_min",
+                                                      thresh)
+        return zyx
+
     def run(self, orig, threshold=None, threshold_std=None, tol_spat=3,
             tol_spec=5, maxdist_lines=2.5, segmap=None):
         if threshold is not None:

@@ -643,3 +643,91 @@ def test_cuda_encoders_match_cpu(cuda, name):
     assert scale_c == scale and idxc.dtype == idx.dtype == torch.int32
     np.testing.assert_array_equal(idxc.cpu().numpy(), idx.numpy())
     np.testing.assert_array_equal(valsc.cpu().numpy(), vals.numpy())
+
+
+def _assert_same_catalogs(a, b, names):
+    for name in names:
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.colnames == y.colnames and len(x) == len(y) > 0, name
+        for col in y.colnames:
+            np.testing.assert_array_equal(np.asarray(x[col]),
+                                          np.asarray(y[col]),
+                                          err_msg=f"{name} {col}")
+
+
+@pytest.mark.gpu
+def test_cuda_cli_run_and_status(cuda, tmp_path, capsys):
+    """``python -m origin_tpu_torch run`` on the card (the default
+    --device): the sweep kernel launches and the minicube's goldens come
+    back (Cat0 / Cat1 15 / 14, Cat3 14 lines / 13 sources); ``status``
+    lists the 11 steps as DUMPED."""
+    from origin_tpu_torch.__main__ import main
+    from origin_tpu_torch.core import Table
+    from tools_torch.synthetic import make_minicube, make_segmap
+
+    cube_fn, seg_fn = str(tmp_path / "mini.fits"), str(tmp_path / "seg.fits")
+    make_minicube(cube_fn)
+    make_segmap(seg_fn)
+    spectral_sweep.launches = 0
+    assert main(["run", cube_fn, "--name", "cli", "--path", str(tmp_path),
+                 "--purity", "0.8", "--minsize", "30", "--segmap", seg_fn,
+                 "--loglevel", "WARNING"]) == 0
+    assert spectral_sweep.launches > 0
+    folder = tmp_path / "cli"
+    counts = [len(Table.read(str(folder / f"{n}.fits")))
+              for n in ("Cat0", "Cat1", "Cat3_lines", "Cat3_sources")]
+    assert counts == [15, 14, 14, 13]
+    assert len(list((folder / "sources").iterdir())) == 13
+    capsys.readouterr()
+    assert main(["status", str(folder)]) == 0
+    out = capsys.readouterr().out
+    assert out.count(": DUMPED") == 11
+
+
+@pytest.mark.gpu
+def test_cuda_reference_export_resumes(cuda, tmp_path):
+    """A session on the card after step 04, exported in the reference
+    dialect and loaded on the card: step 05 launches the sweep kernel on
+    the exported cube_faint, and Cat0-Cat3 equal those of a run that
+    never stopped."""
+    from origin_tpu_torch.pipeline.session import ORIGIN
+    from origin_tpu_torch.pipeline.steps import Status
+    from tools_torch.synthetic import make_minicube, make_segmap
+
+    cube_fn, seg_fn = str(tmp_path / "mini.fits"), str(tmp_path / "seg.fits")
+    make_minicube(cube_fn)
+    make_segmap(seg_fn)
+
+    def steps(orig, which):
+        calls = (lambda: orig.step01_preprocessing(),
+                 lambda: orig.step02_areas(minsize=30, maxsize=60),
+                 lambda: orig.step03_compute_PCA_threshold(),
+                 lambda: orig.step04_compute_greedy_PCA(),
+                 lambda: orig.step05_compute_TGLR(),
+                 lambda: orig.step06_compute_purity_threshold(purity=0.8),
+                 lambda: orig.step07_detection(segmap=seg_fn),
+                 lambda: orig.step08_compute_spectra(),
+                 lambda: orig.step09_clean_results())
+        for i in which:
+            calls[i - 1]()
+        return orig
+
+    kw = dict(path=str(tmp_path), loglevel="WARNING", device="cuda")
+    full = steps(ORIGIN.init(cube_fn, name="full", **kw), range(1, 10))
+    b = steps(ORIGIN.init(cube_fn, name="b", **kw), range(1, 5))
+    (tmp_path / "ref").mkdir()
+    folder = b.write(path=str(tmp_path / "ref"), compat="reference")
+    b.close_logfile()
+    resumed = ORIGIN.load(folder, device="cuda")
+    assert [s.status for s in resumed.steps.values()][:5] == (
+        [Status.DUMPED] * 4 + [Status.NOTRUN])
+    spectral_sweep.launches = 0
+    steps(resumed, range(5, 10))
+    assert spectral_sweep.launches > 0
+    assert resumed.cube_faint.tensor.is_cuda
+    for key in ("threshold", "threshold_std"):
+        assert resumed.param[key] == full.param[key]
+    _assert_same_catalogs(resumed, full, ("Cat0", "Cat1", "Cat2",
+                                          "Cat3_lines", "Cat3_sources"))
+    for o in (full, resumed):
+        o.close_logfile()

@@ -118,23 +118,25 @@ def test_unported_entry_points_name_the_roadmap(tmp_path):
     import pytest
 
     from make_minicube import make_minicube
+    from origin_tpu_torch.__main__ import main
     from origin_tpu_torch.pipeline.session import ORIGIN
 
     path = str(tmp_path / "tiny.fits")
     make_minicube(path, nz=40, ny=10, nx=12)
+    # the CLI's multi-GPU and streamed-ingest flags; the reference
+    # dialect, which raised here before, is ported
+    # (tests/test_torch_compat.py)
+    for flag, entry in ((["--mesh", "2"], "item 4: 'Multi-GPU'"),
+                        (["--overlap-ingest"], "streamed ingest")):
+        with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
+            main(["run", path, "--path", str(tmp_path), "--device", "cpu",
+                  *flag])
+        assert entry in str(exc.value)
     orig = ORIGIN.init(path, device="cpu", path=str(tmp_path), name="t",
                        loglevel="WARNING")
-    # a parameter file of the reference package's dialect (python tags)
     ref = tmp_path / "ref"
     ref.mkdir()
-    (ref / "ref.yaml").write_text(
-        "cubename: tiny.fits\nstatus: !!python/object/apply:"
-        "origin.steps.Status [1]\n")
-    for call in (lambda: orig.write(compat="reference"),
-                 lambda: ORIGIN.load(str(ref), device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*Session I/O"):
-            call()
+    assert orig.write(path=str(ref), compat="reference") == str(ref / "t")
     assert [s.method_name for s in orig.steps.values()] == [
         "step01_preprocessing", "step02_areas",
         "step03_compute_PCA_threshold", "step04_compute_greedy_PCA",
@@ -144,6 +146,45 @@ def test_unported_entry_points_name_the_roadmap(tmp_path):
         "step11_save_sources",
     ]
     orig.close_logfile()
+
+
+def test_user_surface_imports_and_runs_without_jax(tmp_path):
+    """The CLI, the reference dialect, the catalog edits and the plots
+    import with jax, yaml, matplotlib and the JAX package blocked, and the
+    CLI runs a cube through step 09 and its closing write on the CPU."""
+    code = textwrap.dedent(f"""
+        import os, sys
+        for name in ("jax", "yaml", "matplotlib", "origin_tpu"):
+            sys.modules[name] = None
+        sys.path[:0] = [{REPO!r}]
+        import torch
+        torch.set_num_threads(2)
+        import origin_tpu_torch.__main__ as cli
+        import origin_tpu_torch.pipeline.compat
+        import origin_tpu_torch.artifacts.source_update
+        import origin_tpu_torch.pipeline.plotting
+        from tools_torch.synthetic import make_minicube
+
+        cube = {str(tmp_path / "mini.fits")!r}
+        make_minicube(cube, nz=300, ny=40, nx=40)
+        rc = cli.main(["run", cube, "--name", "cli", "--path",
+                       {str(tmp_path)!r}, "--purity", "0.8", "--minsize",
+                       "20", "--no-sources", "--loglevel", "WARNING",
+                       "--device", "cpu"])
+        assert rc == 0, rc
+        assert os.path.isfile({str(tmp_path / "cli" / "cli.yaml")!r})
+        loaded = [m for m, v in sys.modules.items() if v is not None
+                  and m.split(".")[0] in ("jax", "yaml", "matplotlib",
+                                          "origin_tpu")]
+        assert not loaded, loaded
+        print("SURFACE-OK")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=str(tmp_path))
+    tails = (f"rc {res.returncode}\n--- stdout:\n{res.stdout[-3000:]}\n"
+             f"--- stderr:\n{res.stderr[-3000:]}")
+    assert res.returncode == 0, tails
+    assert "SURFACE-OK" in res.stdout, tails
 
 
 def test_device_is_explicit():
