@@ -107,7 +107,21 @@ g. the session's user surface on the card, on the field file at
    cubes) and ``update_sources`` refresh the first three sources, whose
    masks must equal step 10's files and whose source files step 11's, by
    the rules of tests/test_torch_pipeline.py's
-   ``assert_same_source_files``.
+   ``assert_same_source_files``;
+h. the full 3681 x 300 x 300 MUSE field (tools_torch/synthetic.make_field,
+   seed 7, the generator's default source counts, written to a FITS file
+   under build/chip_smoke and deleted after the phase), steps 01-11 twice
+   with each step's wall and peak device memory: h1 in the normal mode
+   (``ORIGIN_TPU_HBM_BYTES`` unset: the session must not be tight), h2 in
+   the tight mode under ``ORIGIN_TPU_HBM_BYTES=16e9`` (the environment
+   restored after it).  The float32 sweep must launch once in each run,
+   the spatial kernel never in h2; after h2's steps 01, 04 and 05 the
+   products it offloads and the raw inputs must hold no device memory;
+   h2's peak must be within the budget and below h1's, its Cat0/Cat1
+   within one line of h1's and its correl threshold within 1e-3 (the
+   modes' spatial stages differ in float32 order only); step 11 writes
+   one file per Cat3 source; a session of the 3681 x 100 x 200 field
+   under the same budget must not be tight.
 
 In phases 4, 5 and d, steps 05-07 are then re-run with the plain versions
 in place of the kernels (after the step 08-11 checks: the re-run replaces
@@ -126,8 +140,9 @@ line of the float64 ARPACK oracle of step 04 (tools_torch/field_step04.py).
 Every launch counter is set to 0 just before a main-path run and read
 just after it: phase 5's cold run for the float32 sweep, phase d's field
 run for the spatial kernel and the bf16x3 sweep, phase c's entry calls for
-the spaxel-major sweeps, phase e's and phase f's resumed steps 05-11 and
-phase g's CLI run and resumed export for the float32 sweep again.  The next-to-last line of stdout is a JSON record
+the spaxel-major sweeps, phase e's and phase f's resumed steps 05-11,
+phase g's CLI run and resumed export and phase h's two full-field runs for
+the float32 sweep again.  The next-to-last line of stdout is a JSON record
 of the kernels, the line before it the card's name and power limit, the
 last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
@@ -704,11 +719,12 @@ def _catalog_rows(cat):
     return np.stack([np.asarray(cat[c], np.int64) for c in cols], axis=1)
 
 
-def _rerun_with_plain(orig, step_kwargs, precision):
+def _rerun_with_plain(orig, step_kwargs, precision, label=None):
     """Steps 05-07 again, with the kernels and then with the plain versions
     in their place (the spatial stage's too in bf16x3), both on the same
     inputs: after step 11's closing write, those that steps 01-04 stored
-    in their compact files."""
+    in their compact files.  ``label`` names the run in the check (the
+    precision by default)."""
     import numpy as np
 
     from origin_tpu_torch.ops import glr
@@ -736,7 +752,8 @@ def _rerun_with_plain(orig, step_kwargs, precision):
     dthr = max(abs(thr[0] - orig.param["threshold"]),
                abs(thr[1] - orig.param["threshold_std"]))
     check(same_rows and t_ok and dthr <= 1e-3,
-          f"{precision} steps 05-07 with the plain versions: same Cat1 rows "
+          f"{label or precision} steps 05-07 with the plain versions: same "
+          "Cat1 rows "
           f"and T_GLR (rtol 1e-4), thresholds within {dthr:.2g} <= 1e-3")
 
 
@@ -1801,6 +1818,201 @@ def phase_surface(field, ref):
     return out
 
 
+# -- phase h ------------------------------------------------------------------
+# the full MUSE field, and the memory budget that the JAX package's own
+# tools set (tools/bench_e2e.py, tools/make_walkthrough.py): 24 cubes of
+# this field (31.8 GB) exceed it, so its sessions run tight
+FULL_FIELD = (3681, 300, 300)
+TIGHT_BUDGET = "16e9"
+# the products that a tight session moves off the card after these steps
+OFFLOADS = dict(step01=("cont_dct",), step04=("cube_std",),
+                step05=("cube_faint", "cube_correl_min"))
+# the two modes' spatial stages differ only in float32 order (the FFTs
+# against the DFT matmul chain)
+MODE_THRESH_TOL = 1e-3
+
+
+def _offload_spy(freed):
+    """A stand-in for ``TorchEngine.maybe_offload`` that appends, for each
+    call, the names, the device bytes of those products that were on the
+    card, and ``memory_allocated`` before and after the call (the
+    collector off in between, so that no other garbage is freed there)."""
+    import torch
+
+    from origin_tpu_torch.pipeline.engine import TorchEngine
+
+    real = TorchEngine.maybe_offload
+
+    def spy(self, *names):
+        gc.collect()
+        gc.disable()
+        try:
+            nbytes = 0
+            for n in names:
+                if self.on_device(n):
+                    t = self.get(n)
+                    nbytes += t.numel() * t.element_size()
+                    del t
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            real(self, *names)
+            torch.cuda.synchronize()
+            freed.append(dict(names=names, nbytes=nbytes, before=before,
+                              after=torch.cuda.memory_allocated()))
+        finally:
+            gc.enable()
+
+    return spy
+
+
+def _mode_run(field_fn, mode, budget):
+    """Steps 01-11 of the field file with ``ORIGIN_TPU_HBM_BYTES`` set to
+    ``budget`` (unset for None), the environment restored afterwards.
+    Prints and returns each step's wall and peak device memory, the
+    catalogs' numbers, the launches, after steps 01, 04 and 05 which
+    offloaded products and raw inputs hold device memory, and what each
+    ``maybe_offload`` call freed (``memory_allocated``).  Then holds the
+    session's steps 05-07 against the plain versions on the same inputs
+    (:func:`_rerun_with_plain`)."""
+    import torch
+
+    from origin_tpu_torch.pipeline.engine import TorchEngine
+    from origin_tpu_torch.pipeline.session import ORIGIN
+
+    saved = os.environ.pop("ORIGIN_TPU_HBM_BYTES", None)
+    if budget is not None:
+        os.environ["ORIGIN_TPU_HBM_BYTES"] = budget
+    freed = []
+    real_offload = TorchEngine.maybe_offload
+    TorchEngine.maybe_offload = _offload_spy(freed)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        orig = ORIGIN.init(field_fn, name=f"full_{mode}", path=WORK,
+                           loglevel="WARNING", device="cuda")
+        tight = orig.engine.tight_memory
+        walls, peaks, resident = {}, {}, {}
+        reset_counts()
+        for name in STEP_NAMES:
+            torch.cuda.reset_peak_memory_stats()
+            walls.update(_run_steps(orig, STEP_KWARGS, (name,)))
+            peaks[name] = torch.cuda.max_memory_allocated()
+            if name in OFFLOADS:
+                resident[name] = dict(
+                    {n: orig.engine.on_device(n) for n in OFFLOADS[name]},
+                    inputs=orig.engine.inputs_resident())
+        counts = read_counts()
+    finally:
+        TorchEngine.maybe_offload = real_offload
+        os.environ.pop("ORIGIN_TPU_HBM_BYTES", None)
+        if saved is not None:
+            os.environ["ORIGIN_TPU_HBM_BYTES"] = saved
+    peak = max(peaks.values())
+    for name in STEP_NAMES:
+        log(f"  {mode} {name}: {walls[name]:.3f} s, peak "
+            f"{peaks[name] / 2**30:.3f} GiB")
+    nmask, nsrc, nbytes = _source_files(orig)
+    for f in freed:
+        log(f"  {mode} maybe_offload{f['names']}: "
+            f"{(f['before'] - f['after']) / 2**30:.3f} GiB freed of "
+            f"{f['nbytes'] / 2**30:.3f} GiB on the card")
+    out = dict(tight=tight, walls=walls, peaks=peaks, peak_bytes=peak,
+               total=sum(walls.values()), launches=counts,
+               resident=resident, freed=freed, mask_files=nmask,
+               source_files=nsrc,
+               source_bytes=nbytes,
+               threshold=float(orig.param["threshold"]),
+               threshold_std=float(orig.param["threshold_std"]),
+               cat0=len(orig.Cat0), cat1=len(orig.Cat1),
+               cat3=_cat3_counts(orig))
+    log(f"  {mode}: tight {tight}; steps 01-11 {out['total']:.3f} s, peak "
+        f"{peak / 2**30:.3f} GiB ({peak} bytes); thresholds "
+        f"{out['threshold']:.6f} / {out['threshold_std']:.6f}, Cat0 "
+        f"{out['cat0']}, Cat1 {out['cat1']}, Cat3 lines / sources / comp=1 "
+        f"{out['cat3']}; launches {counts}; {nsrc} source files, {nmask} "
+        "mask files")
+    t0 = time.perf_counter()
+    _rerun_with_plain(orig, STEP_KWARGS, "highest", f"{mode} mode, highest,")
+    out["plain_rerun_s"] = time.perf_counter() - t0
+    orig.close_logfile()
+    shutil.rmtree(orig.outpath, ignore_errors=True)
+    del orig
+    return out
+
+
+def phase_full_field(small_field_fn):
+    """The full 300 x 300 x 3681 field in both memory modes: h1 with the
+    card's own budget, h2 under ``ORIGIN_TPU_HBM_BYTES=16e9``; the
+    3681 x 100 x 200 field is not tight under that budget."""
+    from origin_tpu_torch.pipeline.session import ORIGIN
+    from tools_torch.synthetic import make_field
+
+    t0 = time.perf_counter()
+    cube, _ = make_field(*FULL_FIELD, seed=7)
+    t1 = time.perf_counter()
+    field_fn = os.path.join(WORK, "full_field.fits")
+    cube.write(field_fn)
+    del cube
+    t2 = time.perf_counter()
+    log(f"  field {FULL_FIELD} generated in {t1 - t0:.1f} s, written to "
+        f"{field_fn} in {t2 - t1:.1f} s "
+        f"({os.path.getsize(field_fn)} bytes)")
+    try:
+        log("  h1: the normal mode")
+        h1 = _mode_run(field_fn, "normal", None)
+        check(not h1["tight"], "h1: a session of the full field on the "
+              "card's own budget is not tight")
+        check(h1["launches"]["toeplitz_sweep"] == 1, "h1 launched "
+              "toeplitz_sweep once")
+        log(f"  h2: the tight mode (ORIGIN_TPU_HBM_BYTES={TIGHT_BUDGET})")
+        h2 = _mode_run(field_fn, "tight", TIGHT_BUDGET)
+    finally:
+        os.remove(field_fn)
+    check(h2["tight"], "h2: the full field under the budget is tight")
+    check(h2["launches"]["toeplitz_sweep"] == 1
+          and h2["launches"]["spatial_fsf"] == 0, "h2 launched "
+          "toeplitz_sweep once and spatial_fsf never "
+          f"({h2['launches']})")
+    for name, held in h2["resident"].items():
+        check(not any(held.values()), f"h2: after {name} the offloaded "
+              f"products and the raw inputs hold no device memory ({held})")
+    check([f["names"] for f in h2["freed"]] == list(OFFLOADS.values()),
+          "h2 offloaded after steps 01, 04 and 05")
+    for f in h2["freed"]:
+        fall = f["before"] - f["after"]
+        check(f["nbytes"] > 0 and fall >= f["nbytes"], f"h2: "
+              f"maybe_offload{f['names']} lowered memory_allocated by "
+              f"{fall} >= the products' {f['nbytes']} device bytes")
+    check(all(all(held.values()) for held in h1["resident"].values()),
+          "h1: the products and the raw inputs stay on the card in the "
+          f"normal mode ({h1['resident']})")
+    check(h2["peak_bytes"] <= float(TIGHT_BUDGET)
+          and h2["peak_bytes"] < h1["peak_bytes"], "h2's peak "
+          f"{h2['peak_bytes']} bytes is within the budget and below h1's "
+          f"{h1['peak_bytes']}")
+    for key in ("cat0", "cat1"):
+        check(abs(h2[key] - h1[key]) <= COUNT_TOL, f"h2 {key} {h2[key]} "
+              f"within {COUNT_TOL} line of h1's {h1[key]}")
+    dthr = abs(h2["threshold"] - h1["threshold"])
+    check(dthr <= MODE_THRESH_TOL, f"h2's correl threshold within "
+          f"{dthr:.3g} <= {MODE_THRESH_TOL} of h1's")
+    log(f"  Cat3 lines / sources / comp=1: h1 {h1['cat3']}, h2 {h2['cat3']}")
+    check(h2["source_files"] == h2["cat3"][1], "h2: step 11 wrote one file "
+          f"per Cat3 source ({h2['source_files']})")
+    os.environ["ORIGIN_TPU_HBM_BYTES"] = TIGHT_BUDGET
+    try:
+        small = ORIGIN.init(small_field_fn, name="small_tight", path=WORK,
+                            loglevel="WARNING", device="cuda")
+    finally:
+        del os.environ["ORIGIN_TPU_HBM_BYTES"]
+    small_tight = small.engine.tight_memory
+    small.close_logfile()
+    shutil.rmtree(small.outpath, ignore_errors=True)
+    check(not small_tight, "the 3681 x 100 x 200 field under the same "
+          "budget is not tight")
+    return dict(generate_s=t1 - t0, write_s=t2 - t1, normal=h1, tight=h2)
+
+
 # -- phase a ------------------------------------------------------------------
 def _spatial_problem(nz, ny, nx, nfields, dev, psf_size=25, seed=3):
     """The field's FSF (the synthetic cubes' Moffat model) for nz channels,
@@ -2139,6 +2351,9 @@ def main():
     log("[g] the user surface on cuda: the CLI's field run, status and "
         "info, reference exports, source updates")
     res["surface"] = phase_surface(field, reference)
+    log("[h] the full field %dx%dx%d steps 01-11 on cuda in the normal "
+        "mode (h1) and the tight mode (h2)" % FULL_FIELD)
+    res["full_field"] = phase_full_field(field[0])
     jaxed = sorted(m for m in sys.modules if m.split(".")[0] in
                    ("jax", "origin_tpu"))
     check(not jaxed, "nothing of JAX or of the JAX package was imported "

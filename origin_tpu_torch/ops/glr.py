@@ -6,7 +6,9 @@ the plain spectral sweep (torch port of :mod:`origin_tpu.ops.glr`).
    cube are data-independent (:func:`precompute_spatial`, ``torch.fft``);
    the per-cube convolution is DFT-by-matmul (:func:`glr_spatial_matmul`),
    the plain version of the CUDA kernel
-   :func:`origin_tpu_torch.ops.spatial.spatial_fsf`.
+   :func:`origin_tpu_torch.ops.spatial.spatial_fsf`.  A tight-memory
+   session computes both per spectral slab with FFTs instead
+   (:func:`glr_spatial_chunked`).
 2. Spectral stage: each trimmed, normalized profile is a 'same'
    correlation along z, with a running max / argmax / min over the
    dictionary.  :func:`toeplitz_sweep` here is the plain version (unfold +
@@ -31,6 +33,7 @@ __all__ = [
     "dft_spatial_factors",
     "precompute_spatial",
     "glr_spatial_matmul",
+    "glr_spatial_chunked",
     "toeplitz_sweep",
 ]
 
@@ -203,6 +206,44 @@ def glr_spatial_matmul(cube, kern_r, kern_i, wmaps, factors,
         out = d3(gr, cxr) - d3(gi, cxi)
         cube_fsf = out if cube_fsf is None else cube_fsf + out
     return cube_fsf
+
+
+def glr_spatial_chunked(cube, psfs, wmaps, fshape2, zchunk=512):
+    """Memory-bounded spatial stage: (cube_fsf, norm_fsf) slab by slab.
+
+    The JAX package's ``glr_spatial_chunked``: every channel's FSF
+    correlation and norm as padded 2-D real FFTs (``torch.fft``), over
+    spectral slabs of ``zchunk`` channels, so that no spectra bank of the
+    whole cube is held and the transients stay near ``zchunk / Nz`` of the
+    whole cube's.  ``psfs`` is (F, Nz, P, P), ``wmaps`` (F, Ny, Nx) or None
+    (one field); the fields' terms are summed.  Returns two (Nz, Ny, Nx)
+    float32 tensors.
+    """
+    nz, ny, nx = cube.shape
+    ph, pw = psfs.shape[-2:]
+    y0, x0 = (ph - 1) // 2, (pw - 1) // 2
+    cube_fsf = torch.zeros_like(cube)
+    norm_fsf = torch.zeros_like(cube)
+
+    def same(a):
+        return a[:, y0 : y0 + ny, x0 : x0 + nx]
+
+    for nf in range(psfs.shape[0]):
+        base = (torch.ones((1, ny, nx), dtype=cube.dtype, device=cube.device)
+                if wmaps is None else wmaps[nf][None])
+        bf = torch.fft.rfft2(base, s=fshape2)
+        for z0 in range(0, nz, zchunk):
+            z1 = min(nz, z0 + zchunk)
+            kern = torch.flip(psfs[nf, z0:z1], dims=(1, 2))
+            kern = kern - torch.mean(kern, dim=(1, 2), keepdim=True)
+            data = cube[z0:z1] if wmaps is None else cube[z0:z1] * wmaps[nf]
+            cf = torch.fft.rfft2(data, s=fshape2)
+            cf *= torch.fft.rfft2(kern, s=fshape2)
+            cube_fsf[z0:z1] += same(torch.fft.irfft2(cf, s=fshape2))
+            del cf
+            k2f = torch.fft.rfft2(kern * kern, s=fshape2)
+            norm_fsf[z0:z1] += same(torch.fft.irfft2(bf * k2f, s=fshape2))
+    return cube_fsf, norm_fsf
 
 
 def toeplitz_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,

@@ -21,6 +21,8 @@ The JAX package's documented deviations from the reference are kept:
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -243,7 +245,9 @@ def estimation_line_arrays(x0, y0, z0, raw, var, psf, weights=None,
     the windows are gathered on its device from the session's resident
     inputs and ``raw`` / ``var`` are not read; without one, ``raw`` and
     ``var`` are the zero-filled cube and inf-filled variance (the session's
-    ``cube_raw`` and ``var``) and the work runs on ``device``.
+    ``cube_raw`` and ``var``) and the work runs on ``device``.  The engine
+    chooses where the windows are cut (:meth:`TorchEngine.cutting_windows`:
+    on the host once a tight-memory session has dropped its inputs).
     """
     dev = engine.device if engine is not None else resolve_device(device)
     if engine is None:
@@ -271,25 +275,28 @@ def estimation_line_arrays(x0, y0, z0, raw, var, psf, weights=None,
 
     n = len(x0)
     results = {k: [] for k in _KEYS}
-    for i0 in range(0, n, batch):
-        ii = slice(i0, min(n, i0 + batch))
-        xs, ys, zs = idx(x0, ii), idx(y0, ii), idx(z0, ii)
-        if engine is not None:
-            wins = engine.minicubes(xs, ys, sg, wmaps)
-        else:
-            wins = (gather_windows(raw, ys, xs, sg, 0.0),
-                    gather_windows(var, ys, xs, sg, torch.inf))
-            if wmaps is not None:
-                wins += (gather_windows(wmaps, ys, xs, sg, 0.0),)
-        out = grid_analysis_batch(
-            wins[0], wins[1], zs, ys, xs, psf_t,
-            wins[2] if wmaps is not None else None, d0, ny, nx,
-            size_grid=g, criteria=criteria, horiz=horiz, horiz_psf=horiz_psf)
-        del wins
-        for k in _KEYS:
-            v = out[k]
-            if k in ("y", "x", "z"):
-                v = v.to(torch.int32)  # the JAX package's index dtype
-            results[k].append(v.cpu().numpy())
+    with (engine.cutting_windows(n, sg) if engine is not None
+          else contextlib.nullcontext()):
+        for i0 in range(0, n, batch):
+            ii = slice(i0, min(n, i0 + batch))
+            xs, ys, zs = idx(x0, ii), idx(y0, ii), idx(z0, ii)
+            if engine is not None:
+                wins = engine.minicubes(xs, ys, sg, wmaps)
+            else:
+                wins = (gather_windows(raw, ys, xs, sg, 0.0),
+                        gather_windows(var, ys, xs, sg, torch.inf))
+                if wmaps is not None:
+                    wins += (gather_windows(wmaps, ys, xs, sg, 0.0),)
+            out = grid_analysis_batch(
+                wins[0], wins[1], zs, ys, xs, psf_t,
+                wins[2] if wmaps is not None else None, d0, ny, nx,
+                size_grid=g, criteria=criteria, horiz=horiz,
+                horiz_psf=horiz_psf)
+            del wins
+            for k in _KEYS:
+                v = out[k]
+                if k in ("y", "x", "z"):
+                    v = v.to(torch.int32)  # the JAX package's index dtype
+                results[k].append(v.cpu().numpy())
     return {k: np.concatenate(v) if n else np.empty(0)
             for k, v in results.items()}

@@ -208,7 +208,7 @@ def spectral_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
 
     ``tests/test_torch_gpu.py:_hold`` pins each rule.  The footprints come
     from the tilings, not from the statistic, and the engine zero-fills
-    non-finite voxels before step 05 (``pipeline/engine.py:_derive_inputs``),
+    non-finite voxels before step 05 (``pipeline/engine.py:_fill_cube``),
     so the main path never feeds such a sample.
     """
     check_precision(precision)

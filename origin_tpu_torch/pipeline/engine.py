@@ -13,23 +13,35 @@ Steps 01 and 04 also bring their products' recipe payloads to the host
 (the DCT coefficients and channel means, the greedy PCA's rank-1 factors),
 which the session stores in place of the dense cubes (``recipes.py``).  The
 JAX engine's transfer machinery (streamed ingest, int16 and bit-packed
-wires, speculative and bucketed compaction, host rebuilds) exists for a
-slow TPU host link and is not ported.
+wires, speculative and bucketed compaction) exists for a slow TPU host
+link and is not ported.
+
+A field whose working set (:attr:`TorchEngine.HEADROOM_CUBES` cubes) does
+not fit the device's memory budget (:func:`device_memory_fits`) runs in
+the tight-memory mode, as in the JAX engine: the raw inputs leave the
+device after step 01, finished products leave it after steps 01, 04 and
+05 (:meth:`TorchEngine.maybe_offload`), step 05's spatial stage runs in
+spectral slabs (:func:`~origin_tpu_torch.ops.glr.glr_spatial_chunked`),
+step 08 cuts its windows on the host and step 11 builds its sources on
+the host path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 
 import numpy as np
 import torch
 
+from ..core.containers import Cube
 from ..device import resolve_device, set_precision
 from ..ops.convolve import fft2_shape
 from ..ops.dct import dct_residual
 from ..ops.glr import (
     dft_spatial_factors,
+    glr_spatial_chunked,
     glr_spatial_matmul,
     pack_profiles_toeplitz,
     precompute_spatial,
@@ -43,25 +55,93 @@ from ..ops.spectra import batched_source_spectra
 from ..ops.stats import o2test, standardize
 from ..ops.sweep import spectral_sweep
 from .products import Parked, TensorCube
+from .recipes import recipes_enabled
 
-__all__ = ["TorchEngine"]
+__all__ = ["TorchEngine", "device_memory_budget", "device_memory_fits"]
+
+log = logging.getLogger(__name__)
 
 
-def _derive_inputs(raw, var_raw):
-    """Zero-filled cube, inf-filled variance and NaN mask from the raw
-    uploads (the host filled()/var_filled() views, computed on device)."""
-    mask = ~torch.isfinite(raw)
-    cube = torch.where(mask, 0.0, raw)
-    var = torch.where(mask | ~torch.isfinite(var_raw), float("inf"), var_raw)
-    return cube, var, mask
+def device_memory_budget(device):
+    """``(bytes, source)`` of the memory budget of ``device``; ``bytes`` is
+    None where there is no limit.
+
+    In this order: ``ORIGIN_TPU_HBM_BYTES`` (scientific notation
+    accepted); on a CUDA device, the total that ``torch.cuda.mem_get_info``
+    reports; the CPU has no limit.  Nothing is allocated to probe.
+    """
+    env = os.environ.get("ORIGIN_TPU_HBM_BYTES")
+    if env:
+        return int(float(env)), "ORIGIN_TPU_HBM_BYTES"
+    device = torch.device(device)
+    if device.type == "cuda":
+        return (int(torch.cuda.mem_get_info(device)[1]),
+                "torch.cuda.mem_get_info")
+    return None, "host memory"
+
+
+def device_memory_fits(nbytes, device):
+    """Whether ``nbytes`` of working set fit the budget of ``device``
+    (:func:`device_memory_budget`)."""
+    budget, _ = device_memory_budget(device)
+    return budget is None or nbytes <= budget
+
+
+def _fill_cube(raw, mask):
+    """The zero-filled cube (the host ``filled(0)`` view) on device."""
+    return torch.where(mask, 0.0, raw)
+
+
+def _fill_var(var_raw, mask):
+    """The inf-filled variance (the host ``var_filled`` view) on device."""
+    return torch.where(mask | ~torch.isfinite(var_raw), float("inf"),
+                       var_raw)
+
+
+def _host_windows(cube, ys, xs, sg, wmaps=None):
+    """(b, Nz, sg, sg) data and variance windows (and (b, F, sg, sg) weight
+    windows of the (F, Ny, Nx) ``wmaps``) centred at (ys, xs), cut from
+    the raw host arrays of ``cube``.
+
+    Each window is filled as the session's device inputs are: data 0 and
+    variance inf at non-finite data (and at the cube's explicit mask), the
+    variance inf where it is not finite, and data 0, variance inf and
+    weight 0 outside the field: the values :func:`gather_windows` takes
+    from the resident inputs (the JAX package's host cut).
+    """
+    raw = cube.data
+    var = cube.var
+    nl, ny, nx = raw.shape
+    b = len(ys)
+    dat = np.zeros((b, nl, sg, sg), np.float32)
+    vr = np.full((b, nl, sg, sg), np.inf, np.float32)
+    wgt = (None if wmaps is None
+           else np.zeros((b, wmaps.shape[0], sg, sg), np.float32))
+    h = sg // 2
+    for j in range(b):
+        yy0, xx0 = int(ys[j]) - h, int(xs[j]) - h
+        sy = slice(max(0, yy0), min(ny, yy0 + sg))
+        sx = slice(max(0, xx0), min(nx, xx0 + sg))
+        win = (j, slice(None), slice(sy.start - yy0, sy.stop - yy0),
+               slice(sx.start - xx0, sx.stop - xx0))
+        d = np.asarray(raw[:, sy, sx], np.float32)
+        v = (np.ones_like(d) if var is None
+             else np.asarray(var[:, sy, sx], np.float32))
+        bad = ~np.isfinite(d)
+        if cube.mask is not None:
+            bad |= np.asarray(cube.mask[:, sy, sx], bool)
+        dat[win] = np.where(bad, 0.0, d)
+        vr[win] = np.where(bad | ~np.isfinite(v), np.inf, v)
+        if wgt is not None:
+            wgt[win] = wmaps[:, sy, sx]
+    return (dat, vr) if wgt is None else (dat, vr, wgt)
 
 
 def _mask_extrema(correl, correl_min, profile, mask, size, prof_dtype=None):
-    """Masking + 3-D local extrema + max/min maps."""
-    correl = torch.where(mask, 0.0, correl)
-    correl_min = torch.where(mask, 0.0, correl_min)
-    profile = torch.where(mask, torch.zeros((), dtype=profile.dtype,
-                                            device=profile.device), profile)
+    """Masking (in place) + 3-D local extrema + max/min maps."""
+    correl.masked_fill_(mask, 0.0)
+    correl_min.masked_fill_(mask, 0.0)
+    profile.masked_fill_(mask, 0)
     lmax, lmin = compute_local_max(correl, correl_min, mask, size)
     minmap = torch.amin(correl_min, dim=0)
     if prof_dtype is not None:
@@ -78,14 +158,45 @@ class TorchEngine:
     """Per-session holder of device-resident front-end state.
 
     ``device`` is explicit (``"cuda"`` or ``"cpu"``); constructing the
-    engine sets the float32 precision contract (:func:`set_precision`).
+    engine sets the float32 precision contract (:func:`set_precision`) and,
+    for a session with a cube, decides its memory mode
+    (:attr:`tight_memory`).
     """
+
+    #: cube-sized products are divided over this many devices
+    memory_shards = 1
+    #: cubes of the field demanded before running unchunked: ~10 resident
+    #: cube-sized products plus step 05's spectra bank and transients
+    HEADROOM_CUBES = 24
 
     def __init__(self, orig, device):
         self.orig = orig
         self.device = resolve_device(device)
         set_precision()
         self._inputs = {}
+        self._host_cut = False
+        self._tight = None
+        if getattr(orig, "shape", None) is not None:
+            _ = self.tight_memory  # one mode for every step of the session
+
+    @property
+    def tight_memory(self):
+        """True when the device's budget cannot hold ``HEADROOM_CUBES``
+        float32 cubes of the field (:func:`device_memory_fits`); decided
+        once and logged with the budget."""
+        if self._tight is None:
+            need = (4 * int(np.prod(self.orig.shape)) * self.HEADROOM_CUBES
+                    // self.memory_shards)
+            budget, source = device_memory_budget(self.device)
+            self._tight = budget is not None and need > budget
+            log.info(
+                "memory mode: %s (%d cubes of the field need %.3g GB; "
+                "budget %s from %s)",
+                "tight" if self._tight else "normal", self.HEADROOM_CUBES,
+                need / 1e9,
+                "none" if budget is None else f"{budget / 1e9:.3g} GB",
+                source)
+        return self._tight
 
     # -- inputs ------------------------------------------------------------
     @staticmethod
@@ -107,42 +218,62 @@ class TorchEngine:
     def _upload(self, arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _upload_inputs(self):
-        """(cube, var, mask) on device.
+    def _ensure_inputs(self, *names):
+        """Upload the inputs ``names`` that are not on the device.
 
         A cube without a mask extension uploads its raw data and variance
-        and derives the zero-filled / inf-filled / mask triple on device;
-        otherwise the three host views are uploaded.
+        and derives the zero-filled cube, the inf-filled variance and the
+        NaN mask on device (from the resident mask when there is one);
+        otherwise the host views are uploaded.
         """
-        c = self.orig.cube
+        missing = [n for n in names if n not in self._inputs]
+        if not missing:
+            return
+        orig, c = self.orig, self.orig.cube
         if c.mask is not None:
-            return (self._upload(self.orig.cube_raw),
-                    self._upload(self.orig.var),
-                    self._upload(self.orig.mask))
-        raw = self._upload(np.asarray(c.data, np.float32))
-        if c.var is not None:
-            var_raw = self._upload(np.asarray(c.var, np.float32))
-        else:
-            var_raw = torch.ones(c.data.shape, dtype=torch.float32,
-                                 device=self.device)
-        return _derive_inputs(raw, var_raw)
-
-    def _ensure_inputs(self):
-        if not self._inputs:
-            cube, var, mask = self._upload_inputs()
-            self._inputs.update(cube=cube, var=var, mask=mask)
+            views = dict(cube=lambda: orig.cube_raw, var=lambda: orig.var,
+                         mask=lambda: orig.mask)
+            for n in missing:
+                self._inputs[n] = self._upload(views[n]())
+            return
+        mask = self._inputs.get("mask")
+        if "cube" in missing or mask is None:
+            raw = self._upload(np.asarray(c.data, np.float32))
+            if mask is None:
+                mask = self._inputs["mask"] = ~torch.isfinite(raw)
+            if "cube" in missing:
+                self._inputs["cube"] = _fill_cube(raw, mask)
+            del raw
+        if "var" in missing:
+            if c.var is not None:
+                var_raw = self._upload(np.asarray(c.var, np.float32))
+            else:
+                var_raw = torch.ones(c.shape, dtype=torch.float32,
+                                     device=self.device)
+            self._inputs["var"] = _fill_var(var_raw, mask)
 
     def input_cube(self):
-        self._ensure_inputs()
+        self._ensure_inputs("cube")
         return self._inputs["cube"]
 
     def input_var(self):
-        self._ensure_inputs()
+        self._ensure_inputs("var")
         return self._inputs["var"]
 
     def input_mask(self):
-        self._ensure_inputs()
+        self._ensure_inputs("mask")
         return self._inputs["mask"]
+
+    def drop_inputs(self, *names):
+        """Free the device copies of the inputs ``names``."""
+        for n in names:
+            self._inputs.pop(n, None)
+
+    def inputs_resident(self):
+        """Whether the raw cube is on the device; False once a tight-memory
+        session dropped it after step 01, so that step 08 cuts its few
+        windows on the host rather than upload the field again."""
+        return "cube" in self._inputs
 
     def load_state(self, arrays):
         """Start the session mid-pipeline from the JAX package's state.
@@ -179,16 +310,70 @@ class TorchEngine:
             else:
                 raise KeyError(f"load_state: unknown state {name!r}")
 
-    def get(self, name):
-        """Device tensor of a cube-sized session product (a parked one is
-        uploaded at its first fetch)."""
+    def _peek(self, name):
+        """The session's object of product ``name`` as it is (None if
+        absent)."""
         owner = self.orig._product_owner.get(name)
-        obj = owner.store.peek(name) if owner is not None else None
+        return owner.store.peek(name) if owner is not None else None
+
+    def _product(self, name):
+        """:meth:`_peek`, a parked product read (and uploaded) first."""
+        obj = self._peek(name)
         if isinstance(obj, Parked):
-            obj = owner.store.fetch(name)
-        if not isinstance(obj, TensorCube):
-            raise KeyError(f"no cube product {name!r} in this session")
-        return obj.tensor
+            obj = self.orig._product_owner[name].store.fetch(name)
+        return obj
+
+    def get(self, name):
+        """Device tensor of a cube-sized session product.  A product that
+        a tight-memory session moved to the host (:meth:`offload`) is
+        uploaded for the caller and stays on the host."""
+        obj = self._product(name)
+        if isinstance(obj, TensorCube):
+            return obj.tensor.to(self.device)
+        if isinstance(obj, Cube):
+            return self._upload(np.asarray(obj.data, np.float32))
+        raise KeyError(f"no cube product {name!r} in this session")
+
+    def on_device(self, name):
+        """Whether cube product ``name`` holds the session device's memory
+        (False once :meth:`offload` moved it to the host)."""
+        obj = self._peek(name)
+        return isinstance(obj, TensorCube) and not obj.offloaded
+
+    #: offloaded products whose standard deviation step 09 reads: it is
+    #: taken on the device at the offload (:meth:`std_scalar`)
+    _STD_CACHED = ("cube_std",)
+
+    def offload(self, *names):
+        """Move finished cube products off the device, freeing its memory.
+
+        A product stored as a recipe (``cube_std``, ``cont_dct``,
+        ``cube_faint`` of a session read from a file, recipes on) becomes
+        its :class:`~.recipes.LazyRecipeCube`, rebuilt on the host at its
+        first read and written as the same recipe file; any other becomes
+        a host copy (:meth:`TensorCube.to_host`), written in its form.
+        The standard deviation of a detection statistic is taken on the
+        device first.  :meth:`get` uploads either again for a device step.
+        """
+        for name in names:
+            obj = self._peek(name)
+            if not isinstance(obj, TensorCube) or obj.offloaded:
+                continue
+            std = self._std(obj.tensor) if name in self._STD_CACHED else None
+            if obj.recipe is not None and recipes_enabled():
+                host = obj.recipe.lazy_cube(self.orig)
+                host._recipe_source = obj._recipe_source
+                self.orig._product_owner[name].store.stash(name, host)
+            else:
+                host = obj
+                obj.to_host()
+            if std is not None:
+                host._std_scalar = std
+
+    def maybe_offload(self, *names):
+        """:meth:`offload` on a tight-memory session; nothing otherwise."""
+        if self.tight_memory:
+            self.offload(*names)
 
     def release(self):
         """Drop every device allocation this session's engine holds.
@@ -214,7 +399,8 @@ class TorchEngine:
         Returns (device dict, host dict): the cube-sized products stay on
         device; the 2-D images come back as numpy, with the recipe payload
         of cube_std and cont_dct: the (order+1, Ny, Nx) DCT coefficients
-        ``coef`` and the (Nz,) channel means ``mean_z``.
+        ``coef`` and the (Nz,) channel means ``mean_z``.  A tight-memory
+        session then drops the raw cube and variance from the device.
         """
         cube, var, mask = (self.input_cube(), self.input_var(),
                            self.input_mask())
@@ -234,6 +420,9 @@ class TorchEngine:
         )
         dev = dict(cube_std=data, cont_dct=cont_std,
                    cube_std_local_max=lmax, cube_std_local_min=lmin)
+        if self.tight_memory:
+            # step 08 cuts its windows on the host; the mask stays for 05
+            self.drop_inputs("cube", "var")
         return dev, host
 
     # -- step 04 -----------------------------------------------------------
@@ -287,8 +476,11 @@ class TorchEngine:
         Instrument-model precompute (FSF spectra + norm cube), spatial FSF
         stage, the spectral sweep (:func:`spectral_sweep`: the CUDA kernel
         on a GPU) at the session's precision (:meth:`_kernel_precision`),
-        masking, local extrema and the max/min maps.  Returns (device
-        dict, host dict with the maxmap/minmap images).
+        masking, local extrema and the max/min maps.  A tight-memory
+        session runs the spatial stage in spectral slabs
+        (:func:`glr_spatial_chunked`) instead of holding the spectra bank,
+        as the JAX engine does.  Returns (device dict, host dict with the
+        maxmap/minmap images).
         """
         faint = self.get("cube_faint")
         nz, ny, nx = faint.shape
@@ -312,13 +504,36 @@ class TorchEngine:
             prof_dtype = torch.int16
         else:
             prof_dtype = None  # keep the kernel's int32 indices
+        prec = self._kernel_precision()
+        if self.tight_memory:
+            cube_fsf, norm_fsf = glr_spatial_chunked(
+                faint, self._upload(psfs), wmaps, fshape2)
+        else:
+            cube_fsf, norm_fsf = self._spatial(faint, psfs, wmaps, fshape2,
+                                               prec)
+        del faint
+        correl, profile, correl_min = spectral_sweep(
+            cube_fsf.contiguous(), norm_fsf, self._upload(t_num),
+            self._upload(t_den), pad_left, nz, precision=prec)
+        del cube_fsf, norm_fsf
+        (correl, correl_min, profile, lmax, lmin, maxmap,
+         minmap) = _mask_extrema(correl, correl_min, profile,
+                                 self.input_mask(), size,
+                                 prof_dtype=prof_dtype)
+        dev = dict(cube_correl=correl, cube_correl_min=correl_min,
+                   cube_profile=profile, cube_local_max=lmax,
+                   cube_local_min=lmin)
+        return dev, dict(maxmap=_host(maxmap), minmap=_host(minmap))
+
+    def _spatial(self, faint, psfs, wmaps, fshape2, prec):
+        """Step 05's spatial stage on the whole cube: (cube_fsf,
+        norm_fsf) from the precomputed FSF spectra bank."""
+        ny, nx = faint.shape[1:]
         factors = {
             k: self._upload(v)
             for k, v in dft_spatial_factors(
                 ny, nx, fshape2, psfs.shape[-2:]).items()
         }
-
-        prec = self._kernel_precision()
         kern_hats, norm_fsf = precompute_spatial(self._upload(psfs), wmaps,
                                                  ny, nx, fshape2)
         kern_r = kern_hats.real.contiguous()
@@ -334,19 +549,7 @@ class TorchEngine:
         else:
             cube_fsf = glr_spatial_matmul(faint, kern_r, kern_i, wmaps,
                                           factors)
-        del kern_r, kern_i
-        correl, profile, correl_min = spectral_sweep(
-            cube_fsf.contiguous(), norm_fsf, self._upload(t_num),
-            self._upload(t_den), pad_left, nz, precision=prec)
-        del cube_fsf, norm_fsf
-        (correl, correl_min, profile, lmax, lmin, maxmap,
-         minmap) = _mask_extrema(correl, correl_min, profile,
-                                 self.input_mask(), size,
-                                 prof_dtype=prof_dtype)
-        dev = dict(cube_correl=correl, cube_correl_min=correl_min,
-                   cube_profile=profile, cube_local_max=lmax,
-                   cube_local_min=lmin)
-        return dev, dict(maxmap=_host(maxmap), minmap=_host(minmap))
+        return cube_fsf, norm_fsf
 
     # -- step 07 -----------------------------------------------------------
     def detections_above(self, name, threshold, gather=()):
@@ -366,28 +569,70 @@ class TorchEngine:
         return zyx, _host(vals), [_host(e) for e in extras]
 
     # -- step 08 -----------------------------------------------------------
+    @contextlib.contextmanager
+    def cutting_windows(self, n, sg):
+        """Step 08's cut of ``n`` windows of edge ``sg`` by
+        :meth:`minicubes` inside the block.
+
+        When the inputs left the device (a tight-memory session after step
+        01) and the windows hold fewer spaxels than the field
+        (``n * sg**2 < Ny * Nx``), they are cut from the session cube's
+        host arrays and only they are uploaded; otherwise they are gathered
+        from the inputs, uploaded again if need be and, on a tight-memory
+        session, dropped after the block (no later step reads them).
+        """
+        ny, nx = self.orig.shape[1:]
+        self._host_cut = (not self.inputs_resident()
+                          and n * sg * sg < ny * nx)
+        try:
+            yield
+        finally:
+            host, self._host_cut = self._host_cut, False
+            if not host and self.tight_memory:
+                self.drop_inputs("cube", "var")
+
     def minicubes(self, xs, ys, sg, wmaps=None):
-        """(B, Nz, sg, sg) detection minicubes gathered on device.
+        """(B, Nz, sg, sg) detection minicubes on device.
 
         One index gather from the resident zero-filled cube and
         inf-filled variance (:func:`gather_windows`), out-of-field cells
         filled with data 0 and variance inf, at any field size; with the
-        (F, Ny, Nx) device tensor ``wmaps``, also the (B, F, sg, sg)
-        weight windows, filled with 0.  Returns the tuple of windows.
+        (F, Ny, Nx) tensor ``wmaps``, also the (B, F, sg, sg) weight
+        windows, filled with 0.  Inside :meth:`cutting_windows`'s host cut
+        the same windows come from :func:`_host_windows`.  Returns the
+        tuple of windows.
         """
+        if self._host_cut:
+            host = _host_windows(
+                self.orig.cube, torch.as_tensor(ys).cpu().numpy(),
+                torch.as_tensor(xs).cpu().numpy(), sg,
+                None if wmaps is None else torch.as_tensor(wmaps).cpu()
+                .numpy())
+            return tuple(self._upload(w) for w in host)
         ys = torch.as_tensor(ys, dtype=torch.int64, device=self.device)
         xs = torch.as_tensor(xs, dtype=torch.int64, device=self.device)
         out = (gather_windows(self.input_cube(), ys, xs, sg, 0.0),
                gather_windows(self.input_var(), ys, xs, sg, float("inf")))
         if wmaps is not None:
+            wmaps = torch.as_tensor(wmaps, device=self.device)
             out += (gather_windows(wmaps, ys, xs, sg, 0.0),)
         return out
 
     # -- step 09 -----------------------------------------------------------
+    @staticmethod
+    def _std(t):
+        """Population standard deviation (``jnp.std``; torch's default
+        ``correction=1`` would be the sample one)."""
+        return float(torch.std(t, correction=0))
+
     def std_scalar(self, name):
-        """Population standard deviation of a cube product (``jnp.std``;
-        torch's default ``correction=1`` would be the sample one)."""
-        return float(torch.std(self.get(name), correction=0))
+        """Standard deviation of a cube product: the value taken on the
+        device when the product was offloaded, else that of its device
+        tensor (the same reduction)."""
+        cached = getattr(self._product(name), "_std_scalar", None)
+        if cached is not None:
+            return cached
+        return self._std(self.get(name))
 
     # -- step 11 -----------------------------------------------------------
     def source_spectra(self, jobs_by_size, wcube_fn=None):
@@ -401,8 +646,12 @@ class TorchEngine:
         are gathered from the resident inputs, cells outside the field
         filled as the JAX engine's padded copies are.
 
-        Returns ``{source_id: {tag: spectrum}}``.
+        Returns ``{source_id: {tag: spectrum}}``, or ``{}`` on a
+        tight-memory session, whose inputs left the device: step 11 then
+        takes the host path.
         """
+        if self.tight_memory:
+            return {}
         out = {}
         for m, jobs in sorted(jobs_by_size.items()):
             wcube = wcube_fn(m) if wcube_fn is not None else None

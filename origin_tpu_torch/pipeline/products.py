@@ -103,6 +103,8 @@ class TensorCube:
         self._recipe_source = recipe_source
         self._host = None
         self._gen = 0
+        # True once to_host moved the content off the session's device
+        self.offloaded = False
 
     @property
     def tensor(self):
@@ -119,6 +121,15 @@ class TensorCube:
     @property
     def shape(self):
         return tuple(self._tensor.shape)
+
+    def to_host(self):
+        """Move the content to host memory and free its device copy (a
+        tight-memory session's eager offload).  Form, recipe and scale
+        stay, so the product is written as it would have been; a device
+        step gets it back through ``TorchEngine.get``."""
+        self._tensor = self._tensor.cpu()
+        self._host = None
+        self.offloaded = True
 
     @property
     def data(self):

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import os
 import threading
+from typing import NamedTuple
 
 import numpy as np
 
@@ -40,6 +41,7 @@ __all__ = [
     "write_dct_recipe",
     "write_pca_recipe",
     "recipe_writer",
+    "RecipeWriter",
     "rebuild_std_cont",
     "rebuild_std_cont_region",
     "apply_pca_factors",
@@ -114,18 +116,38 @@ def write_pca_recipe(path, factors, cubename):
     fitsio.write(path, hdus)
 
 
-def recipe_writer(kind, payload, cubename):
+class RecipeWriter(NamedTuple):
     """The writer ``write(path)`` of a recipe file of ``kind`` (the
     ``RECIPE_KEY`` value) with ``payload``: ``(coef, mean_z, order)`` for
-    the DCT kinds, the factor list for ``pca_faint``."""
-    if kind in ("dct_std", "dct_cont"):
-        coef, mean_z, order = payload
-        which = "std" if kind == "dct_std" else "cont"
-        return lambda path: write_dct_recipe(path, which, coef, mean_z,
-                                             order, cubename)
-    if kind == "pca_faint":
-        return lambda path: write_pca_recipe(path, payload, cubename)
-    raise ValueError(f"unknown recipe kind {kind!r}")
+    the DCT kinds, the factor list for ``pca_faint``.  Its fields also
+    build the product's host rebuild (:meth:`lazy_cube`)."""
+
+    kind: str
+    payload: object
+    cubename: object
+
+    def __call__(self, path):
+        if self.kind == "pca_faint":
+            write_pca_recipe(path, self.payload, self.cubename)
+        else:
+            coef, mean_z, order = self.payload
+            which = "std" if self.kind == "dct_std" else "cont"
+            write_dct_recipe(path, which, coef, mean_z, order, self.cubename)
+
+    def lazy_cube(self, orig):
+        """The :class:`LazyRecipeCube` of this recipe against the session
+        ``orig``'s raw data (a ``pca_faint`` one on its ``cube_std``):
+        the product's host form, rebuilt at its first read."""
+        std = orig.cube_std if self.kind == "pca_faint" else None
+        return LazyRecipeCube(None, self.kind, self.payload, std,
+                              _RawContext(orig, self.cubename))
+
+
+def recipe_writer(kind, payload, cubename):
+    """The :class:`RecipeWriter` of a recipe file of ``kind``."""
+    if kind not in ("dct_std", "dct_cont", "pca_faint"):
+        raise ValueError(f"unknown recipe kind {kind!r}")
+    return RecipeWriter(kind, payload, cubename)
 
 
 def _standardize(raw, var, mask, cont, mean_z):

@@ -92,7 +92,7 @@ class ORIGIN(PlotMixin):
         # not adopt them (loaded sessions own the existing files)
         self._aux_synced = param is not None
         # resolve the device first: a missing GPU fails before any I/O
-        self.engine = TorchEngine(self, device)
+        device = resolve_device(device)
         os.makedirs(self.outpath, exist_ok=True)
 
         setup_logging(level=loglevel, stream=sys.stdout)
@@ -102,17 +102,17 @@ class ORIGIN(PlotMixin):
         # the JAX package's load reads it; the port logs without color
         self.param["logcolor"] = False
         try:
-            self._init_session(filename, fieldmap, profiles, PSF,
+            self._init_session(filename, device, fieldmap, profiles, PSF,
                                LBDA_FWHM_PSF, FWHM_PSF, PSF_size, imawhite,
                                wfields)
         except Exception:
             self.close_logfile()
             raise
 
-    def _init_session(self, filename, fieldmap, profiles, PSF,
+    def _init_session(self, filename, device, fieldmap, profiles, PSF,
                       LBDA_FWHM_PSF, FWHM_PSF, PSF_size, imawhite, wfields):
         self.logger.info("Step 00 - Initialization (ORIGIN v%s, torch on %s)",
-                         __version__, self.engine.device)
+                         __version__, device)
 
         # step wiring: instantiate, fix signatures, expose stepNN_* methods
         self.steps = OrderedDict()
@@ -137,6 +137,8 @@ class ORIGIN(PlotMixin):
             self.cube = Cube(filename)
         self.param["cubename"] = filename
         self.Nz, self.Ny, self.Nx = self.shape = self.cube.shape
+        # the engine decides the session's memory mode from the shape
+        self.engine = TorchEngine(self, device)
         self.wcs = self.cube.wcs
         self.wave = self.cube.wave
 

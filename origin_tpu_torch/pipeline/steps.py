@@ -7,9 +7,11 @@ package's default form (``forms``, and the recipes of steps 01 and 04).  A
 resumed session's parked cube products come back on the session's device
 at their first fetch (:meth:`Step._load_recipe_product`,
 :meth:`Step._upload_cube`), so its steps take the same device paths as an
-uninterrupted run.  The JAX package's TPU-link machinery (device drops,
-prefetches, background parking, the lazy re-upload of a resumed session's
-detection cubes) is not ported.
+uninterrupted run.  On a tight-memory session steps 01, 04 and 05 move
+their finished products off the device (``TorchEngine.maybe_offload``),
+as the JAX package's do.  The JAX package's TPU-link machinery (device
+drops, prefetches, background parking, the lazy re-upload of a resumed
+session's detection cubes) is not ported.
 """
 
 from __future__ import annotations
@@ -284,7 +286,7 @@ class Preprocessing(Step):
                      "cont_dct"):
             kind = dict(cube_std="dct_std", cont_dct="dct_cont").get(name)
             self.store_cube_dev(
-                name, dev[name],
+                name, dev.pop(name),
                 recipe=kind and self.recipe(kind, payload))
         self.store_image("ima_std", host["ima_std"])
         self.store_image("ima_dct", host["ima_dct"])
@@ -309,6 +311,8 @@ class Preprocessing(Step):
         segmap, nlabels = ndi.label((map_cont > 0) | (map_res > 0))
         info("segmap_merged ready (union of both maps, %d regions)", nlabels)
         self.store_image("segmap_merged", segmap)
+        # diagnostics-only product: off the device on a tight session
+        orig.engine.maybe_offload("cont_dct")
 
 
 class CreateAreas(Step):
@@ -442,6 +446,9 @@ class ComputeGreedyPCA(Step):
             "cube_faint / mapO2 ready (nuisance-removed signal + per-spaxel "
             "iteration counts)"
         )
+        # no later device step reads cube_std (its local extrema are
+        # products of their own): off the device on a tight session
+        orig.engine.maybe_offload("cube_std")
 
 
 class ComputeTGLR(Step):
@@ -471,13 +478,14 @@ class ComputeTGLR(Step):
         )
         for name in ("cube_correl", "cube_correl_min", "cube_profile",
                      "cube_local_max", "cube_local_min"):
-            self.store_cube_dev(name, dev[name])
+            self.store_cube_dev(name, dev.pop(name))
         self.store_image("maxmap", host["maxmap"])
         self.store_image("minmap", host["minmap"])
         self.logger.info(
             "T_GLR statistic, best-profile indices, local extrema and the "
             "maxmap / minmap images ready"
         )
+        orig.engine.maybe_offload("cube_faint", "cube_correl_min")
 
 
 class ComputePurityThreshold(Step):
@@ -676,7 +684,7 @@ class ComputeSpectra(Step):
             np.asarray(cat1["x0"], int),
             np.asarray(cat1["y0"], int),
             np.asarray(cat1["z0"], int),
-            # the engine gathers the windows from its resident inputs
+            # the engine cuts the windows (TorchEngine.cutting_windows)
             None, None, orig.PSF, weights=orig.wfields,
             size_grid=grid_dxy, criteria="flux", order_dct=30, horiz_psf=1,
             horiz=5, engine=orig.engine,
@@ -912,15 +920,17 @@ class SaveSources(Step):
 
         Returns ``(spectra_pre, line_images_pre)`` for
         :func:`create_all_sources` — or ``(None, None)`` whenever the
-        batched path cannot run (empty catalog, detection cubes not on
-        the device), in which case the host per-source path computes
+        batched path cannot run (a tight-memory session, whose inputs
+        left the device; empty catalog; detection cubes not on the
+        device), in which case the host per-source path computes
         everything.  Three device rounds: every line's narrow-band max
         image, every source's spectra (the line images as weights), and
         the detection-cube stats (ORI_CORR spectrum, ORI_MAXMAP).
         """
         cat = getattr(orig, "Cat3_sources", None)
         lines = getattr(orig, "Cat3_lines", None)
-        if cat is None or len(cat) == 0 or lines is None:
+        if (orig.engine.tight_memory or cat is None or len(cat) == 0
+                or lines is None):
             return None, None
         comps_present = {int(c) for c in np.asarray(cat["comp"])}
         dev_by_comp = {}

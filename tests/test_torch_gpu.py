@@ -22,6 +22,8 @@ times nearer its own plain version (a one-ulp change upstream moves a split
 by a bf16 step, so the two bf16x3 forms part by about half the gap).
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -604,6 +606,120 @@ def test_cuda_compact_session_resumes_after_step04(cuda, tmp_path,
         assert abs(resumed.param[key] - full.param[key]) <= 1e-3
     assert (len(resumed.Cat0), len(resumed.Cat1)) == (
         len(full.Cat0), len(full.Cat1)) == (15, 14)
+
+
+def _tight_front(tmp_path, monkeypatch, precision, budget, sweeps=None):
+    """The minicube's steps 01-05 on the card at ``precision`` under the
+    memory budget ``budget`` (None: the card's); returns the session, the
+    launches of steps 01-05 and, per ``maybe_offload`` call, the device
+    memory allocated before and after it.  With the list ``sweeps``, each
+    sweep of step 05 appends its arguments and a copy of its outputs."""
+    from origin_tpu_torch.pipeline import engine as tengine
+    from origin_tpu_torch.pipeline.engine import TorchEngine
+    from origin_tpu_torch.pipeline.session import ORIGIN
+    from tools_torch.synthetic import make_minicube
+
+    cube_fn = str(tmp_path / "mini.fits")
+    make_minicube(cube_fn)
+    monkeypatch.setenv("ORIGIN_TPU_PRECISION", precision)
+    if budget is None:
+        monkeypatch.delenv("ORIGIN_TPU_HBM_BYTES", raising=False)
+    else:
+        monkeypatch.setenv("ORIGIN_TPU_HBM_BYTES", budget)
+    freed = []
+    real = TorchEngine.maybe_offload
+
+    def spy(self, *names):
+        # earlier sessions' garbage must not be collected in between
+        gc.collect()
+        gc.disable()
+        try:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            real(self, *names)
+            freed.append((names, before, torch.cuda.memory_allocated()))
+        finally:
+            gc.enable()
+
+    for owner, attr in ((spectral_sweep, "launches"),
+                        (spectral_sweep, "launches_bf16x3"),
+                        (spatial_fsf, "launches")):
+        setattr(owner, attr, 0)
+    orig = ORIGIN.init(cube_fn, name=f"s{budget}", path=str(tmp_path),
+                       loglevel="WARNING", device="cuda")
+    def recorder(*args, **kw):
+        out = spectral_sweep(*args, **kw)
+        sweeps.append((args, kw, tuple(o.clone() for o in out)))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TorchEngine, "maybe_offload", spy)
+        if sweeps is not None:
+            mp.setattr(tengine, "spectral_sweep", recorder)
+        orig.step01_preprocessing()
+        orig.step02_areas(minsize=30, maxsize=60)
+        orig.step03_compute_PCA_threshold()
+        orig.step04_compute_greedy_PCA()
+        orig.step05_compute_TGLR()
+    launches = dict(highest=spectral_sweep.launches,
+                    bf16x3=spectral_sweep.launches_bf16x3,
+                    spatial=spatial_fsf.launches)
+    orig.close_logfile()
+    return orig, launches, freed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+def test_cuda_tight_step05_matches_normal(cuda, tmp_path, monkeypatch,
+                                          precision):
+    """The tight step 05 (spatial stage in spectral slabs, FFTs) launches
+    the session precision's sweep kernel once and never the spatial
+    kernel; the kernel's outputs hold its plain version's on the same
+    chunked spatial output (the module's sweep tolerances), and the
+    statistic holds the normal mode's at the cross-package atol 1e-3 of
+    tests/test_torch_pipeline.py (the two spatial stages sum in other
+    orders, and in bf16x3 the normal one splits its products)."""
+    normal, n_launch, n_freed = _tight_front(tmp_path, monkeypatch,
+                                             precision, None)
+    sweeps = []
+    tight, t_launch, _ = _tight_front(tmp_path, monkeypatch, precision,
+                                      "1e6", sweeps)
+    assert not normal.engine.tight_memory and tight.engine.tight_memory
+    assert not any(after < before for _, before, after in n_freed)
+    other = "bf16x3" if precision == "highest" else "highest"
+    assert t_launch == {precision: 1, other: 0, "spatial": 0}
+    [(args, kw, (c, p, m))] = sweeps
+    assert kw["precision"] == precision
+    cr, pr, mr = glr.toeplitz_sweep(*args, **kw)
+    torch.testing.assert_close(c, cr, atol=1e-5, rtol=1e-5, equal_nan=True)
+    torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5, equal_nan=True)
+    _assert_ties(p, pr, *args[:5], precision)
+    assert n_launch[precision] == 1
+    for name in ("cube_correl", "cube_correl_min"):
+        a = tight.engine.get(name).cpu()
+        b = normal.engine.get(name).cpu()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    same = (tight.cube_profile.tensor == normal.cube_profile.tensor)
+    assert same.float().mean().item() >= 0.999
+    for name in ("maxmap", "minmap"):
+        np.testing.assert_allclose(getattr(tight, name).data,
+                                   getattr(normal, name).data, rtol=0,
+                                   atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_tight_offloads_free_device_memory(cuda, tmp_path, monkeypatch):
+    """Each eager offload of a tight session (after steps 01, 04 and 05)
+    lowers the allocated device memory, and the products hold none."""
+    orig, _, freed = _tight_front(tmp_path, monkeypatch, "highest", "1e6")
+    assert [names for names, _, _ in freed] == [
+        ("cont_dct",), ("cube_std",), ("cube_faint", "cube_correl_min")]
+    for names, before, after in freed:
+        assert after < before, names
+    for name in ("cont_dct", "cube_std", "cube_faint", "cube_correl_min"):
+        assert not orig.engine.on_device(name), name
+    assert not orig.engine.inputs_resident()
+    assert orig.engine.on_device("cube_correl")
 
 
 # the encoders' cases (tests/test_torch_store.py has them against the JAX
