@@ -1139,7 +1139,8 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
         with _Recorder(masks, "line_max_images") as line_calls, \
                 _Recorder(spectra, "source_spectra") as spectra_calls, \
                 _Timer(ORIGIN, "write") as writes, \
-                _BeforeWrite(ORIGIN, ("cube_correl", "cube_std")) as live:
+                _BeforeWrite(ORIGIN, ("cube_correl", "cube_std")
+                             + PINNED) as live:
             walls = _run_steps(orig, STEP_KWARGS, names, peaks=peaks)
         if first:
             counts = read_counts()
@@ -1188,9 +1189,15 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
                       f"{name} ({counts[name]} launches)")
             _field_checks(out[run], orig, lines)
             if sources:
+                # phase i's single-device reference: the live cubes on
+                # the host, so that no later phase's peak holds them
                 ref = dict(threshold=orig.param["threshold"],
                            threshold_std=orig.param["threshold_std"],
                            files=(nmask, nsrc),
+                           mapO2=orig.mapO2.data.copy(),
+                           maxmap=orig.maxmap.data.copy(),
+                           pinned={n: live.tensors[n].cpu().numpy()
+                                   for n in ("cube_correl",) + PINNED},
                            **{n: getattr(orig, n) for n in CATALOGS})
             if "step08" in names:
                 out[run]["lines"] = _field_lines_checks(orig)
@@ -2013,6 +2020,418 @@ def phase_full_field(small_field_fn):
     return dict(generate_s=t1 - t0, write_s=t2 - t1, normal=h1, tight=h2)
 
 
+# -- phase i ------------------------------------------------------------------
+# the live cubes of phase 5's cold run that phase i holds its mesh runs to
+PINNED = ("cube_faint", "cube_local_max", "cube_profile")
+# the mesh of one card: four row shards of the field's 100 rows, 25 rows
+# each (the 25 x 25 FSF's halo is 12), every slot on this card
+MESH_SP = 4
+MESH_CARD = "cuda:0"
+# tests/test_parallel.py's rules for a mesh session against one device
+MESH_THRESH_TOL = dict(threshold=0.05, threshold_std=0.02)
+MESH_MAPO2_AGREE = 0.99
+MESH_ATOL, MESH_RTOL = 2e-3, 1e-3
+MESH_PROFILE_AGREE = 0.999
+# i5: the mosaic tools on four fields of the field's geometry and FSF
+# (tools_torch/synthetic.py's make_field, seeds 100-103): dp=2 x sp=2,
+# 50-row tiles
+MOSAIC_FIELDS = 4
+MOSAIC_PSF = 25
+# i2: at most this share of the voxels may be a local maximum on one side
+# only (a float32 near-tie of its box)
+MESH_TIES_MAX = 1e-6
+
+
+def _keyed(cat):
+    import numpy as np
+
+    return sorted(zip(*(np.asarray(cat[k]).tolist()
+                        for k in ("x0", "y0", "z0", "comp"))))
+
+
+def _mesh(devices):
+    from origin_tpu_torch.parallel import make_mesh
+
+    return make_mesh(len(devices), dp=1, devices=devices)
+
+
+def _mesh_session(field_fn, name, devices, kwargs, names=STEP_NAMES):
+    """Steps ``names`` of the field file on a ``(1 x len(devices))`` mesh:
+    each step's wall and peak device memory (reset before it), the
+    counters set to 0 just before the steps and read just after."""
+    import torch
+
+    from origin_tpu_torch.pipeline.session import ORIGIN
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    orig = ORIGIN.init(field_fn, name=name, path=WORK, loglevel="WARNING",
+                       device=devices[0], mesh=_mesh(devices))
+    walls, peaks = {}, {}
+    reset_counts()
+    with _Timer(ORIGIN, "write") as writes:
+        for step in names:
+            torch.cuda.reset_peak_memory_stats()
+            walls.update(_run_steps(orig, kwargs, (step,)))
+            peaks[step] = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    for step in names:
+        log(f"  {name} {step}: {walls[step]:.3f} s, peak "
+            f"{peaks[step] / 2**30:.3f} GiB")
+    if writes.walls:
+        nfiles, nbytes = _session_files(orig.outpath)
+        log(f"  {name}: step 11's session write {writes.walls[0]:.3f} s, "
+            f"{nfiles} files, {nbytes} bytes")
+    out = dict(devices=devices, walls=walls, peaks=peaks,
+               write_s=writes.walls[0] if writes.walls else None,
+               total=sum(walls.values()), peak_bytes=max(peaks.values()),
+               launches=counts,
+               threshold=float(orig.param["threshold"]),
+               threshold_std=float(orig.param["threshold_std"]),
+               cat0=len(orig.Cat0), cat1=len(orig.Cat1))
+    log(f"  {name} on {devices}: {out['total']:.3f} s, peak "
+        f"{out['peak_bytes'] / 2**30:.3f} GiB ({out['peak_bytes']} bytes); "
+        f"thresholds {out['threshold']:.6f} / {out['threshold_std']:.6f}, "
+        f"Cat0 {out['cat0']}, Cat1 {out['cat1']}; launches {counts}")
+    return orig, out
+
+
+def _hold_mesh_session(label, orig, ref, out):
+    """A mesh session of the field against phase 5's single-device run, by
+    tests/test_parallel.py's rules: the thresholds, mapO2, and at phase
+    5's thresholds Cat0 and Cat1 keyed (x0, y0, z0, comp); after steps
+    10-11 the Cat3 counts and the number of source and mask files."""
+    import numpy as np
+
+    from origin_tpu_torch.parallel.mesh import RowShards
+
+    # parked by step 11's write: read back, as a resumed session's
+    tiles = getattr(orig.cube_faint, "tensor", None)
+    check(isinstance(tiles, RowShards)
+          and [str(d) for d in tiles.devices] == out["devices"],
+          f"{label}: cube_faint comes back in {len(out['devices'])} row "
+          f"shards on {out['devices']}")
+    del tiles
+    for key, tol in MESH_THRESH_TOL.items():
+        d = abs(out[key] - ref[key])
+        check(d <= tol, f"{label}: {key} within {d:.3g} <= {tol} of phase "
+              "5's")
+    agree = float(np.mean(orig.mapO2.data == ref["mapO2"]))
+    out["mapO2_agreement"] = agree
+    check(agree > MESH_MAPO2_AGREE, f"{label}: mapO2 agrees with phase 5's "
+          f"on {agree:.5f} > {MESH_MAPO2_AGREE} of the spaxels")
+    for name in ("Cat0", "Cat1"):
+        check(_keyed(getattr(orig, name)) == _keyed(ref[name]),
+              f"{label}: {name} at phase 5's thresholds equals phase 5's "
+              f"keyed by (x0, y0, z0, comp) ({len(getattr(orig, name))} "
+              "rows)")
+    got3, want3 = _cat3_counts(orig), (
+        len(ref["Cat3_lines"]), len(ref["Cat3_sources"]),
+        int((np.asarray(ref["Cat3_sources"]["comp"]) == 1).sum()))
+    files = _source_files(orig)[:2]
+    out.update(cat3=got3, files=files)
+    check(got3 == want3 and files == tuple(ref["files"]), f"{label}: Cat3 "
+          f"{got3} and {files[1]} source / {files[0]} mask files equal "
+          "phase 5's")
+
+
+def _extrema_ties(far, correls, tol, size=3):
+    """The voxels of ``far`` (where two local-maxima cubes disagree) that
+    are not near-ties: a voxel is a local maximum on one side only where
+    the filter's comparison of it with the largest of its box's other
+    voxels is decided by float32 order.  Where the two correl cubes
+    differ by at most ``e`` anywhere, such a voxel lies within ``2 e`` of
+    that largest other voxel in both, so ``tol`` is twice the measured
+    gap and the tie must hold in each of ``correls``.  Returns (``far``
+    without the near-ties, the near-ties' largest gaps)."""
+    import numpy as np
+
+    far = far.copy()
+    gaps = []
+    h = size // 2
+    for z, y, x in np.argwhere(far):
+        sl = tuple(slice(max(0, c - h), c + h + 1) for c in (z, y, x))
+        gap = 0.0
+        for correl in correls:
+            box = correl[sl].astype(np.float64)
+            box[z - sl[0].start, y - sl[1].start, x - sl[2].start] = -np.inf
+            gap = max(gap, abs(float(box.max()) - float(correl[z, y, x])))
+        if gap <= tol:
+            far[z, y, x] = False
+            gaps.append(gap)
+    return far, gaps
+
+
+def phase_mesh(field, ref, bf16x3, smi):
+    """The multi-device path on one card: mesh sessions of the field whose
+    slots all name ``cuda:0`` (i1-i4), and the two mosaic tools (i5)."""
+    import numpy as np
+    import torch
+
+    from origin_tpu_torch.ops import glr
+    from origin_tpu_torch.parallel import mesh as mesh_mod
+    from origin_tpu_torch.pipeline.engine import MeshEngine
+    from origin_tpu_torch.pipeline.session import ORIGIN
+
+    field_fn, _ = field
+    t_phase = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    log(f"  {smi}; torch.cuda.device_count() = {ncards}")
+    at_ref = dict(STEP_KWARGS, step07=dict(
+        threshold=ref["threshold"], threshold_std=ref["threshold_std"]))
+    one_card = [MESH_CARD] * MESH_SP
+    out = {}
+
+    log(f"  i1: steps 01-11 on a {MESH_SP}-slot mesh of cuda:0 (highest)")
+    orig, i1 = _mesh_session(field_fn, "mesh_i1", one_card, at_ref)
+    check(i1["launches"]["toeplitz_sweep"] == MESH_SP
+          and i1["launches"]["spatial_fsf"] == 0,
+          f"i1 launched toeplitz_sweep once per tile ({MESH_SP}) and the "
+          f"spatial kernel never ({i1['launches']})")
+    _hold_mesh_session("i1", orig, ref, i1)
+    kinds = _product_kinds(orig.outpath, PRODUCT_KINDS)
+    check(kinds == dict(PRODUCT_KINDS, cube_faint="float32"),
+          "i1: the closing write stored cube_faint dense, as the JAX mesh "
+          "session stores it, and the other products in their kinds "
+          f"({kinds})")
+    out["i1"] = i1
+
+    log("  i4: i1's session loaded with mesh=, step 07")
+    t0 = time.perf_counter()
+    res = ORIGIN.load(orig.outpath, device=MESH_CARD, mesh=_mesh(one_card),
+                      loglevel="WARNING")
+    load_s = time.perf_counter() - t0
+    check(isinstance(res.engine, MeshEngine), "i4: the loaded session runs "
+          "on a MeshEngine")
+    step07_s = sync_wall(lambda: res.step07_detection(**at_ref["step07"]))
+    check(_keyed(res.Cat1) == _keyed(orig.Cat1), "i4: the resumed session's "
+          f"Cat1 equals i1's ({len(res.Cat1)} rows; load {load_s:.3f} s, "
+          f"step 07 {step07_s:.3f} s)")
+    out["i4"] = dict(load_s=load_s, step07_s=step07_s, cat1=len(res.Cat1))
+    for o in (res, orig):
+        o.close_logfile()
+    shutil.rmtree(orig.outpath, ignore_errors=True)
+    del res, orig
+
+    log("  i2: steps 05-07 of a mesh session fed phase 5's cube_faint")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pin = ORIGIN.init(field_fn, name="mesh_i2", path=WORK,
+                      loglevel="WARNING", device=MESH_CARD,
+                      mesh=_mesh(one_card))
+    pin.step01_preprocessing()
+    pin.engine.load_state({"cube_faint": ref["pinned"]["cube_faint"]})
+    real, calls = mesh_mod.spectral_sweep, []
+
+    def recorded(*args, **kwargs):
+        got = real(*args, **kwargs)
+        # copies: glr_tile masks the outputs in place
+        calls.append((args, kwargs, tuple(t.clone() for t in got)))
+        return got
+
+    mesh_mod.spectral_sweep = recorded
+    reset_counts()
+    try:
+        wall = sync_wall(pin.step05_compute_TGLR)
+    finally:
+        mesh_mod.spectral_sweep = real
+    counts = read_counts()
+    check(counts["toeplitz_sweep"] == MESH_SP == len(calls), f"i2: step 05 "
+          f"launched toeplitz_sweep once per tile ({counts}; {wall:.3f} s)")
+    pinned = ref["pinned"]
+    errs = {}
+    for name, got in (("cube_correl", pin.cube_correl.data),
+                      ("cube_local_max", pin.cube_local_max.data),
+                      ("maxmap", pin.maxmap.data)):
+        want = ref["maxmap"] if name == "maxmap" else pinned[name]
+        far = np.abs(got - want) > MESH_ATOL + MESH_RTOL * np.abs(want)
+        ties = ""
+        if name == "cube_local_max":
+            tol = 2 * errs["cube_correl"]
+            far, gaps = _extrema_ties(
+                far, (pinned["cube_correl"], pin.cube_correl.data), tol)
+            cap = MESH_TIES_MAX * far.size
+            check(len(gaps) <= cap, f"i2: {len(gaps)} voxels are a local "
+                  f"maximum on one side only, <= {cap:.1f} "
+                  f"({MESH_TIES_MAX:g} of the voxels)")
+            ties = (f"; {len(gaps)} voxels a local maximum on one side "
+                    "only, each a near-tie of its box in both sessions' "
+                    f"correl within {tol:.3g}, twice the correl gap "
+                    f"(largest {max(gaps, default=0):.3g})")
+            errs["local_max_ties"] = gaps
+        errs[name] = float(np.abs(np.where(far, 0, got - want)).max())
+        check(not far.any(), f"i2: {name} within atol {MESH_ATOL} + rtol "
+              f"{MESH_RTOL} of phase 5's (max abs err {errs[name]:.3g}"
+              f"{ties})")
+    agree = float(np.mean(pin.cube_profile.data == pinned["cube_profile"]))
+    check(agree > MESH_PROFILE_AGREE, f"i2: profiles agree on {agree:.6f} > "
+          f"{MESH_PROFILE_AGREE} of the voxels")
+    tiles = []
+    for i, (args, kwargs, got) in enumerate(calls):
+        x, n, t_num, t_den, pad_left, nz = args
+        plain = glr.toeplitz_sweep(*args, **kwargs)
+        err, mism, gap = _hold_sweep(f"i2 tile {i} {tuple(x.shape)}", got,
+                                     plain, x, n, t_num, t_den, pad_left)
+        tiles.append(dict(shape=list(x.shape), max_abs_err=err,
+                          mismatches=mism, tie_gap=gap))
+        del plain
+    del calls
+    pin.step06_compute_purity_threshold(purity=0.8)
+    pin.step07_detection(**at_ref["step07"])
+    check(_keyed(pin.Cat1) == _keyed(ref["Cat1"]), "i2: Cat1 at phase 5's "
+          "thresholds equals phase 5's")
+
+    def by_position(cat):
+        order = np.lexsort((np.asarray(cat["z0"]), np.asarray(cat["y0"]),
+                            np.asarray(cat["x0"])))
+        return np.asarray(cat["T_GLR"], float)[order]
+
+    a, b = by_position(pin.Cat1), by_position(ref["Cat1"])
+    fin = np.isfinite(b)
+    dt = float(np.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0
+    check(dt <= MESH_ATOL, f"i2: Cat1's T_GLR within {dt:.3g} <= "
+          f"{MESH_ATOL} of phase 5's")
+    out["i2"] = dict(step05_s=wall, max_abs_err=errs,
+                     profile_agreement=agree, tiles=tiles, tglr_err=dt,
+                     threshold=float(pin.param["threshold"]))
+    pin.close_logfile()
+    shutil.rmtree(pin.outpath, ignore_errors=True)
+    del pin
+
+    log("  i3: steps 01-07 of a bf16x3 mesh session at sp=2")
+    prev = os.environ.get("ORIGIN_TPU_PRECISION")
+    os.environ["ORIGIN_TPU_PRECISION"] = "bf16x3"
+    try:
+        orig, i3 = _mesh_session(field_fn, "mesh_i3", [MESH_CARD] * 2,
+                                 STEP_KWARGS, FRONT_STEPS)
+    finally:
+        if prev is None:
+            os.environ.pop("ORIGIN_TPU_PRECISION")
+        else:
+            os.environ["ORIGIN_TPU_PRECISION"] = prev
+    check(i3["launches"]["toeplitz_sweep_bf16x3"] == 2
+          and i3["launches"]["toeplitz_sweep"] == 0,
+          f"i3 launched the bf16x3 sweep once per tile ({i3['launches']})")
+    d = bf16x3["field"]["cold"]
+    for key in ("cat0", "cat1"):
+        check(abs(i3[key] - d[key]) <= COUNT_TOL, f"i3 {key} {i3[key]} "
+              f"within {COUNT_TOL} line of phase d's {d[key]}")
+    log(f"  i3: correl threshold {i3['threshold']:.6f}, phase d's "
+        f"{d['threshold']:.6f}")
+    out["i3"] = i3
+    orig.close_logfile()
+    shutil.rmtree(orig.outpath, ignore_errors=True)
+    del orig
+
+    if ncards >= 2:
+        sp = ncards if (FIELD[1] % ncards == 0
+                        and FIELD[1] // ncards >= 12) else 2
+        cards = [f"cuda:{i}" for i in range(sp)]
+        log(f"  i1 on {sp} cards: {cards}")
+        orig, multi = _mesh_session(field_fn, "mesh_cards", cards, at_ref)
+        _hold_mesh_session("i1 on cards", orig, ref, multi)
+        out["cards"] = multi
+        orig.close_logfile()
+        shutil.rmtree(orig.outpath, ignore_errors=True)
+        del orig
+    else:
+        log(f"  one card (torch.cuda.device_count() = {ncards}): no "
+            "multi-card run was made; the one-card mesh above ran")
+        out["cards"] = None
+
+    log(f"  i5: tools_torch/mosaic_batch.py at dp=2 x sp=2 on cuda:0 over "
+        f"{MOSAIC_FIELDS} fields of {FIELD} with the {MOSAIC_PSF}x"
+        f"{MOSAIC_PSF} FSF, then tools_torch/mosaic_distributed.py --dryrun "
+        "--device cuda on them")
+    out["i5"] = _mesh_tools()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase i: {out['wall_s']:.1f} s")
+    return out
+
+
+def _mesh_tools():
+    import numpy as np
+    import torch
+
+    from origin_tpu_torch.parallel import ShardedPipeline, make_mesh
+    from tools_torch import mosaic_batch
+    from tools_torch.synthetic import make_field
+
+    nz, ny, nx = FIELD
+    work = os.path.join(WORK, "mosaic")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = []
+    for i in range(MOSAIC_FIELDS):
+        fn = os.path.join(work, f"field_{i:02d}.fits")
+        make_field(nz, ny, nx, seed=100 + i)[0].write(fn)
+        paths.append(fn)
+    log(f"  i5: {MOSAIC_FIELDS} fields of {FIELD} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    psf, profiles = mosaic_batch.instrument(nz, MOSAIC_PSF)
+    th = np.linspace(1.0, 8.0, 20)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe = ShardedPipeline(make_mesh(4, dp=2, devices=[MESH_CARD] * 4), nz,
+                           ny, nx, psf, profiles, thresholds=th)
+    setup = time.perf_counter() - t0
+    events = []
+    results = mosaic_batch.run_batches(
+        pipe, paths, dp=2, on_event=lambda *ev: events.append(ev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    starts = {b: t for k, b, t in events if k == "compute_start"}
+    computes = [t - starts[b] for k, b, t in events if k == "compute_done"]
+    check(counts["toeplitz_sweep"] == 2 * len(paths), f"i5: the batch "
+          f"launched toeplitz_sweep once per tile ({counts}; {wall:.3f} s "
+          f"for {len(paths)} fields of {FIELD}, of which the pipeline's "
+          f"set-up {setup:.3f} s and the batches' compute "
+          f"{', '.join(f'{c:.3f}' for c in computes)} s; peak "
+          f"{peak / 2**30:.3f} GiB)")
+    single = ShardedPipeline(make_mesh(2, dp=1, devices=[MESH_CARD] * 2), nz,
+                             ny, nx, psf, profiles, thresholds=th)
+    for p, got in results:
+        _, _, want, _ = single(*mosaic_batch.load_fields([p]))
+        check(np.array_equal(got, want[0]), f"i5: {os.path.basename(p)}'s "
+              f"counts equal its single-field run ({got[:3]}...)")
+    del pipe, single
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools_torch",
+                                      "mosaic_distributed.py"),
+         "--dryrun", "--device", MESH_CARD.split(":")[0], "--workdir", work,
+         "--nz", str(nz), "--ny", str(ny), "--nx", str(nx),
+         "--psf-size", str(MOSAIC_PSF), "--timeout", "300"],
+        capture_output=True, text=True, timeout=400, cwd=REPO)
+    dist_s = time.perf_counter() - t0
+    tail = "" if proc.returncode == 0 else (
+        f": {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    check(proc.returncode == 0, "i5: the distributed dryrun ran (rc "
+          f"{proc.returncode}){tail}")
+    report = json.loads(proc.stdout[proc.stdout.index("{"):])
+    check(report["geometry"] == list(FIELD)
+          and report["psf_size"] == MOSAIC_PSF
+          and report["fields"] == MOSAIC_FIELDS, "i5: the dryrun ran on "
+          f"the {MOSAIC_FIELDS} fields of {FIELD} with the {MOSAIC_PSF}x"
+          f"{MOSAIC_PSF} FSF")
+    log(f"  i5: distributed dryrun {dist_s:.1f} s: "
+        + json.dumps(report["per_host"]))
+    check(report["counts_match_single_process"] is True,
+          "i5: the two processes' counts match a single-process run "
+          f"(equal: {report['counts_equal_single_process']})")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(batch_s=wall, setup_s=setup, compute_s=computes,
+                peak_bytes=peak, launches=counts, dryrun_s=dist_s,
+                dryrun=report)
+
+
 # -- phase a ------------------------------------------------------------------
 def _spatial_problem(nz, ny, nx, nfields, dev, psf_size=25, seed=3):
     """The field's FSF (the synthetic cubes' Moffat model) for nz channels,
@@ -2282,9 +2701,12 @@ def _kernel_line(res):
     rows = dict(
         toeplitz_sweep=dict(
             launches=res["field"]["cold"]["launches"]["toeplitz_sweep"],
+            mesh_launches=res["mesh"]["i1"]["launches"]["toeplitz_sweep"],
             library_ms=None, **sweep),
         toeplitz_sweep_bf16x3=dict(
             launches=res["bf16x3"]["launches"]["toeplitz_sweep_bf16x3"],
+            mesh_launches=res["mesh"]["i3"]["launches"][
+                "toeplitz_sweep_bf16x3"],
             library_ms=None, **sweep3),
         spatial_fsf=dict(
             launches=res["bf16x3"]["launches"]["spatial_fsf"],
@@ -2300,8 +2722,9 @@ def _kernel_line(res):
         source, replaces = KERNEL_SOURCES[name]
         out.append(dict(name=name, route="cuda", source=source,
                         replaces=replaces, **{k: row[k] for k in keys}))
-        if "precision" in row:
-            out[-1]["precision"] = row["precision"]
+        for key in ("precision", "mesh_launches"):
+            if key in row:
+                out[-1][key] = row[key]
     return {"kernels": out}
 
 
@@ -2354,6 +2777,11 @@ def main():
     log("[h] the full field %dx%dx%d steps 01-11 on cuda in the normal "
         "mode (h1) and the tight mode (h2)" % FULL_FIELD)
     res["full_field"] = phase_full_field(field[0])
+    log("[i] the multi-device path on one card: mesh sessions of the field "
+        "(steps 01-11, a pinned step 05, bf16x3, resume) and the mosaic "
+        "tools")
+    res["mesh"] = phase_mesh(field, reference, res["bf16x3"],
+                             res["versions"]["nvidia_smi"])
     jaxed = sorted(m for m in sys.modules if m.split(".")[0] in
                    ("jax", "origin_tpu"))
     check(not jaxed, "nothing of JAX or of the JAX package was imported "

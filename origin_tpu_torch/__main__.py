@@ -15,9 +15,11 @@ resume   resume a saved session, running any remaining steps
 status   print a saved session's step status / timings / stats
 info     print a saved session's log
 
-``--mesh`` (multi-GPU) and ``--overlap-ingest`` (the streamed ingest)
-are not ported: they raise :class:`NotImplementedError` naming their
-ROADMAP.md entries.
+``--mesh N`` row-shards a session over the first N GPUs
+(``make_mesh(N, dp=1)``; it raises when torch sees fewer), or with
+``--device cpu`` over N CPU slots.  ``--overlap-ingest`` (the streamed
+ingest) is not ported: it raises :class:`NotImplementedError` naming its
+ROADMAP.md entry.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ import sys
 
 #: the ROADMAP.md entries that name what is not ported, by entry point
 _LATER = {
-    "--mesh": "section 1, item 4: 'Multi-GPU'",
     "--overlap-ingest": "section 1, 'Left out on purpose': the streamed "
                         "ingest",
 }
@@ -79,7 +80,9 @@ def _add_run_args(p):
     p.add_argument("--overlap-ingest", action="store_true",
                    help="not ported (the streamed ingest): raises")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="not ported (multi-GPU): raises")
+                   help="row-shard the session over the first N GPUs (a "
+                   "(1 x N) mesh; Ny must divide by N), or over N CPU "
+                   "slots with --device cpu")
     p.add_argument("--precision", choices=("highest", "bf16x3"),
                    default=None,
                    help="matmul precision of the GLR kernels (same as "
@@ -151,13 +154,18 @@ def main(argv=None):
     from origin_tpu_torch.pipeline.session import LOGGER_NAME, ORIGIN
     from origin_tpu_torch.pipeline.steps import Status
 
-    if getattr(args, "mesh", None) is not None:
-        raise _not_ported("--mesh")
     if getattr(args, "overlap_ingest", False):
         raise _not_ported("--overlap-ingest")
     if getattr(args, "precision", None):
         os.environ["ORIGIN_TPU_PRECISION"] = args.precision
-    resolve_device(args.device)  # a missing GPU fails before any I/O
+    device = resolve_device(args.device)  # a missing GPU fails before I/O
+    mesh = None
+    if getattr(args, "mesh", None) is not None:
+        from origin_tpu_torch.parallel import make_mesh
+
+        # the first N cards, or N slots of the CPU when asked for
+        mesh = make_mesh(args.mesh, dp=1, devices=(
+            None if device.type == "cuda" else [device] * args.mesh))
 
     if args.command == "run":
         multi = len(args.cube) > 1
@@ -175,7 +183,7 @@ def main(argv=None):
                                    loglevel=args.loglevel,
                                    profiles=args.profiles,
                                    fieldmap=args.fieldmap, PSF=args.psf,
-                                   device=args.device)
+                                   device=args.device, mesh=mesh)
                 _steps_from(orig, args, start_at=1)
             except Exception:
                 if not multi:
@@ -199,7 +207,8 @@ def main(argv=None):
             return 1
     elif args.command == "resume":
         orig = ORIGIN.load(args.folder, newname=args.newname,
-                           loglevel=args.loglevel, device=args.device)
+                           loglevel=args.loglevel, device=args.device,
+                           mesh=mesh)
         done = [s.idx for s in orig.steps.values()
                 if s.status in (Status.RUN, Status.DUMPED)]
         start = (max(done) + 1) if done else 1

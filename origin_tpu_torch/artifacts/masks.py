@@ -27,6 +27,7 @@ import numpy as np
 from ..core.containers import Image, cutout_window, cutout_wcs
 from ..detect.segmentation import detect_sources
 from ..ops.cutouts import line_max_images
+from ..parallel.mesh import windowed
 from ..pipeline.products import TensorCube
 from ..utils import progressbar
 
@@ -88,8 +89,11 @@ def _fetch_line_images(detection_cube, jobs, size):
                 zlos.append(zlo)
                 zhis.append(zhi)
                 keys.append((key, num_line))
-        imgs, _ = line_max_images(detection_cube.tensor, y0s, x0s, zlos,
-                                  zhis, int(size))
+        imgs, _ = windowed(
+            lambda c, y, x, zl, zh: line_max_images(c, y, x, zl, zh,
+                                                    int(size)),
+            detection_cube.tensor, np.asarray(y0s), int(size),
+            np.asarray(x0s), np.asarray(zlos), np.asarray(zhis))
         for key, img in zip(keys, imgs.cpu().numpy()):
             mask = ~np.isfinite(img)
             data = np.where(mask, 0.0, img)

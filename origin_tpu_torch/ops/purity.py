@@ -3,6 +3,11 @@
 
 The per-threshold detection counts over the local-max / local-min cubes
 run on the session's device; the tiny interpolation stays on the host.
+A mesh session's cubes are row shards (``parallel.mesh.RowShards``),
+which take ``max``, ``amax`` over z and the product with an (Ny, Nx) map
+as tensors do and count their own tiles (:func:`_counts`): the counts are
+summed integers and the grid's ends are exact maxima, so they are the
+single device's.
 """
 
 from __future__ import annotations
@@ -34,6 +39,14 @@ def counts_above_thresholds(values, thresholds):
     return torch.stack([torch.count_nonzero(v > t) for t in thresholds])
 
 
+def _counts(values, thresholds):
+    """:func:`counts_above_thresholds` of a tensor, or the counts of row
+    shards summed over their tiles."""
+    if torch.is_tensor(values):
+        return counts_above_thresholds(values, thresholds)
+    return values.counts_above(thresholds)
+
+
 def _median(x):
     """Median with ``jnp.median``'s even-count rule: the mean of the two
     middle values, ``(lo + hi) * 0.5`` in the input dtype
@@ -46,7 +59,7 @@ def _median(x):
 def _scan_auto(cmax, cmin):
     """Auto threshold grid + both count scans for one cube pair."""
     tmax = torch.minimum(cmin.max(), cmax.max())
-    tmin = _median(torch.amax(cmax, dim=0)) * 1.1
+    tmin = _median(cmax.amax(dim=0)) * 1.1
     # tmin + (tmax - tmin) * (i / 49), as the JAX package's compiled
     # program evaluates it: XLA folds the division into a float32
     # reciprocal, reassociates, and contracts i * step + tmin into an FMA
@@ -60,8 +73,7 @@ def _scan_auto(cmax, cmin):
     # n_min at the top of the grid and collapse the purity curve to a
     # spurious "unreachable" -> threshold = inf)
     th[-1] = tmax
-    return (th, counts_above_thresholds(cmax, th),
-            counts_above_thresholds(cmin, th))
+    return th, _counts(cmax, th), _counts(cmin, th)
 
 
 def _fused_pair_auto(clmax, clmin, segmask, cslmax, cslmin):
@@ -75,10 +87,10 @@ def _fused_pair_auto(clmax, clmin, segmask, cslmax, cslmin):
 def _fused_pair_given(clmax, clmin, segmask, cslmax, cslmin, th):
     clmin = clmin * segmask
     return (
-        counts_above_thresholds(clmax, th),
-        counts_above_thresholds(clmin, th),
-        counts_above_thresholds(cslmax, th),
-        counts_above_thresholds(cslmin, th),
+        _counts(clmax, th),
+        _counts(clmin, th),
+        _counts(cslmax, th),
+        _counts(cslmin, th),
     )
 
 

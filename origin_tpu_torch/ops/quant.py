@@ -41,16 +41,28 @@ def _quantize(x, scale32):
     return torch.clamp(torch.round(x / scale32), -QMAX, QMAX).to(torch.int16)
 
 
+def abs_max(t):
+    """``max|t|`` as a float32 0-d tensor, in z-slabs."""
+    t = t.to(torch.float32)
+    amax = torch.zeros((), dtype=torch.float32, device=t.device)
+    for i in range(0, t.shape[0], SLAB):
+        amax = torch.maximum(amax, torch.amax(torch.abs(t[i:i + SLAB])))
+    return amax
+
+
+def i16_scale(amax):
+    """The float32 scale (0-d tensor) of :func:`encode_i16` for the
+    largest magnitude ``amax``."""
+    return torch.clamp(amax * _INV_QSTEP, min=float(np.float32(1e-30)))
+
+
 def encode_i16(t, scale=None):
     """``(q, scale)``: the int16 tensor ``q`` on ``t``'s device and the
     Python float of the float32 scale, ``t ~ q * scale``."""
     t = t.to(torch.float32)
     starts = range(0, t.shape[0], SLAB)
     if scale is None:
-        amax = torch.zeros((), dtype=torch.float32, device=t.device)
-        for i in starts:
-            amax = torch.maximum(amax, torch.amax(torch.abs(t[i:i + SLAB])))
-        scale32 = torch.clamp(amax * _INV_QSTEP, min=float(np.float32(1e-30)))
+        scale32 = i16_scale(abs_max(t))
         scale = float(scale32)
     else:
         scale32 = torch.tensor(np.float32(scale), device=t.device)
@@ -67,15 +79,23 @@ def sparse_i16(t, scale=None):
     Python float scale (float64, as the JAX package stores it)."""
     flat = t.reshape(-1)
     (idx,) = torch.nonzero(flat, as_tuple=True)
-    vals = flat[idx].to(torch.float32)
-    if flat.numel() < 2**31:
+    return quantize_pairs(idx, flat[idx], flat.numel(), scale)
+
+
+def quantize_pairs(idx, vals, numel, scale=None):
+    """:func:`sparse_i16`'s pairs from the flat indices ``idx`` (ascending)
+    and values ``vals`` of the nonzero entries of a cube of ``numel``
+    entries."""
+    vals = vals.to(torch.float32)
+    if numel < 2**31:
         idx = idx.to(torch.int32)
     if scale is None:
         amax = float(torch.amax(torch.abs(vals))) if vals.numel() else 0.0
         scale = max(amax, 1e-30) / 32766.0
     if not vals.numel():
-        return idx, torch.zeros(0, dtype=torch.int16, device=t.device), scale
-    q = _quantize(vals, torch.tensor(np.float32(scale), device=t.device))
+        return (idx, torch.zeros(0, dtype=torch.int16, device=vals.device),
+                scale)
+    q = _quantize(vals, torch.tensor(np.float32(scale), device=vals.device))
     # an extremum tinier than half a step must not vanish from the nonzero
     # set (consumers enumerate extrema by != 0): clamp it to +-1
     tiny = (q == 0) & (vals != 0)

@@ -30,7 +30,7 @@ def o2test(arr):
     return torch.mean(arr * arr, dim=0)
 
 
-def standardize(cube_raw, cont, var, mask, with_mean=False):
+def standardize(cube_raw, cont, var, mask, with_mean=False, mean_z=None):
     """Continuum-subtracted, mean-removed, noise-whitened cube.
 
     Same math as :func:`origin_tpu.ops.stats.standardize`::
@@ -41,12 +41,14 @@ def standardize(cube_raw, cont, var, mask, with_mean=False):
         cont_std = cont / sqrt(var)
 
     Returns (cube_std, cont_std); with ``with_mean``, also the (Nz,)
-    per-channel background levels.
+    per-channel background levels.  ``mean_z`` passes levels taken
+    elsewhere (a row tile of a larger cube: ``parallel.mesh``).
     """
     good = ~mask
     data = cube_raw - cont
-    ngood = torch.clamp(good.sum(dim=(1, 2)), min=1)
-    mean_z = torch.where(good, data, 0.0).sum(dim=(1, 2)) / ngood
+    if mean_z is None:
+        ngood = torch.clamp(good.sum(dim=(1, 2)), min=1)
+        mean_z = torch.where(good, data, 0.0).sum(dim=(1, 2)) / ngood
     std = sqrt_rn(var)
     data = (data - mean_z[:, None, None]) / std
     data = torch.where(good & torch.isfinite(data), data, 0.0)

@@ -54,10 +54,15 @@ from ..ops.spatial import spatial_fsf, spatial_kernel_admits
 from ..ops.spectra import batched_source_spectra
 from ..ops.stats import o2test, standardize
 from ..ops.sweep import spectral_sweep
+from ..parallel.mesh import (
+    RowShards, build_tile_spatial_op, glr_tile, preprocess_rows, std_rows,
+    windowed)
+from ..parallel.pca import greedy_pca_mesh
 from .products import Parked, TensorCube
 from .recipes import recipes_enabled
 
-__all__ = ["TorchEngine", "device_memory_budget", "device_memory_fits"]
+__all__ = ["MeshEngine", "TorchEngine", "device_memory_budget",
+           "device_memory_fits"]
 
 log = logging.getLogger(__name__)
 
@@ -154,6 +159,17 @@ def _host(t):
     return t.cpu().numpy()
 
 
+def _profile_dtype(nprof):
+    """dtype of the best-profile cube for ``nprof`` profiles: uint8 (the
+    reference's in-memory dtype), int16, or None to keep the kernel's
+    int32 indices."""
+    if nprof <= np.iinfo(np.uint8).max:
+        return torch.uint8
+    if nprof <= np.iinfo(np.int16).max:
+        return torch.int16
+    return None
+
+
 class TorchEngine:
     """Per-session holder of device-resident front-end state.
 
@@ -218,6 +234,30 @@ class TorchEngine:
     def _upload(self, arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def resident(self, tensor):
+        """A cube-sized tensor (on any device) where this engine keeps its
+        cube products: on the session's device."""
+        return tensor.to(self.device)
+
+    def _upload_cube(self, arr):
+        """A host cube where this engine keeps its cubes."""
+        return self.resident(torch.from_numpy(np.ascontiguousarray(arr)))
+
+    @staticmethod
+    def _each(fn, *cubes):
+        """``fn`` applied to the engine's cubes (tile by tile on a mesh)."""
+        return fn(*cubes)
+
+    @staticmethod
+    def _image(cube, fn):
+        """The host image ``fn(cube)`` for an ``fn`` that reduces over z
+        (the tiles' images concatenated along y, on a mesh)."""
+        return _host(fn(cube))
+
+    def image_of(self, name, fn):
+        """:meth:`_image` of cube product ``name`` (``o2test``)."""
+        return self._image(self.get(name), fn)
+
     def _ensure_inputs(self, *names):
         """Upload the inputs ``names`` that are not on the device.
 
@@ -230,27 +270,29 @@ class TorchEngine:
         if not missing:
             return
         orig, c = self.orig, self.orig.cube
+        up, each = self._upload_cube, self._each
         if c.mask is not None:
             views = dict(cube=lambda: orig.cube_raw, var=lambda: orig.var,
                          mask=lambda: orig.mask)
             for n in missing:
-                self._inputs[n] = self._upload(views[n]())
+                self._inputs[n] = up(views[n]())
             return
         mask = self._inputs.get("mask")
         if "cube" in missing or mask is None:
-            raw = self._upload(np.asarray(c.data, np.float32))
+            raw = up(np.asarray(c.data, np.float32))
             if mask is None:
-                mask = self._inputs["mask"] = ~torch.isfinite(raw)
+                mask = self._inputs["mask"] = each(
+                    lambda r: ~torch.isfinite(r), raw)
             if "cube" in missing:
-                self._inputs["cube"] = _fill_cube(raw, mask)
+                self._inputs["cube"] = each(_fill_cube, raw, mask)
             del raw
         if "var" in missing:
             if c.var is not None:
-                var_raw = self._upload(np.asarray(c.var, np.float32))
+                var_raw = up(np.asarray(c.var, np.float32))
             else:
-                var_raw = torch.ones(c.shape, dtype=torch.float32,
-                                     device=self.device)
-            self._inputs["var"] = _fill_var(var_raw, mask)
+                var_raw = each(lambda m: torch.ones(
+                    m.shape, dtype=torch.float32, device=m.device), mask)
+            self._inputs["var"] = each(_fill_var, var_raw, mask)
 
     def input_cube(self):
         self._ensure_inputs("cube")
@@ -292,7 +334,9 @@ class TorchEngine:
 
         orig = self.orig
         owners = orig._product_owner
-        for name, val in state_from_numpy(arrays, self.device).items():
+        # on the host first: a cube goes where the engine keeps its cubes
+        # (``store_cube_dev`` through :meth:`resident`)
+        for name, val in state_from_numpy(arrays, "cpu").items():
             owner = owners.get(name)
             if owner is not None:
                 kind = owner.products[name]
@@ -329,9 +373,9 @@ class TorchEngine:
         uploaded for the caller and stays on the host."""
         obj = self._product(name)
         if isinstance(obj, TensorCube):
-            return obj.tensor.to(self.device)
+            return self.resident(obj.tensor)
         if isinstance(obj, Cube):
-            return self._upload(np.asarray(obj.data, np.float32))
+            return self._upload_cube(np.asarray(obj.data, np.float32))
         raise KeyError(f"no cube product {name!r} in this session")
 
     def on_device(self, name):
@@ -402,6 +446,26 @@ class TorchEngine:
         ``coef`` and the (Nz,) channel means ``mean_z``.  A tight-memory
         session then drops the raw cube and variance from the device.
         """
+        data, cont_std, coef, mean_z, lmax, lmin = self._preprocess(
+            dct_order, dct_approx, local_max_size)
+        img = self._image
+        host = dict(
+            ima_std=img(data, lambda t: torch.mean(t, dim=0)),
+            ima_dct=img(cont_std, lambda t: torch.mean(t, dim=0)),
+            o2=img(data, o2test),
+            cont_sumsq=img(cont_std, lambda t: torch.sum(t * t, dim=0)),
+            coef=img(coef, lambda t: t), mean_z=_host(mean_z),
+        )
+        dev = dict(cube_std=data, cont_dct=cont_std,
+                   cube_std_local_max=lmax, cube_std_local_min=lmin)
+        if self.tight_memory:
+            # step 08 cuts its windows on the host; the mask stays for 05
+            self.drop_inputs("cube", "var")
+        return dev, host
+
+    def _preprocess(self, dct_order, dct_approx, local_max_size):
+        """Step 01's device math: ``(cube_std, cont_dct, coef, mean_z,
+        local_max, local_min)``."""
         cube, var, mask = (self.input_cube(), self.input_var(),
                            self.input_mask())
         cont, coef = dct_residual(cube, dct_order, var=var,
@@ -411,19 +475,7 @@ class TorchEngine:
                                              with_mean=True)
         del cont
         lmax, lmin = compute_local_max(data, data, mask, local_max_size)
-        host = dict(
-            ima_std=_host(torch.mean(data, dim=0)),
-            ima_dct=_host(torch.mean(cont_std, dim=0)),
-            o2=_host(o2test(data)),
-            cont_sumsq=_host(torch.sum(cont_std * cont_std, dim=0)),
-            coef=_host(coef), mean_z=_host(mean_z),
-        )
-        dev = dict(cube_std=data, cont_dct=cont_std,
-                   cube_std_local_max=lmax, cube_std_local_min=lmin)
-        if self.tight_memory:
-            # step 08 cuts its windows on the host; the mask stays for 05
-            self.drop_inputs("cube", "var")
-        return dev, host
+        return data, cont_std, coef, mean_z, lmax, lmin
 
     # -- step 04 -----------------------------------------------------------
     def greedy_pca_by_area(self, areamap, thresholds, testO2,
@@ -497,13 +549,7 @@ class TorchEngine:
         prepped = prepare_profiles(profiles, pcut=pcut, pmeansub=pmeansub)
         t_num, t_den, pad_left, _ = pack_profiles_toeplitz(
             prepped, block=min(128, nz))
-        nprof = len(prepped)
-        if nprof <= np.iinfo(np.uint8).max:
-            prof_dtype = torch.uint8  # the reference's in-memory dtype
-        elif nprof <= np.iinfo(np.int16).max:
-            prof_dtype = torch.int16
-        else:
-            prof_dtype = None  # keep the kernel's int32 indices
+        prof_dtype = _profile_dtype(len(prepped))
         prec = self._kernel_precision()
         if self.tight_memory:
             cube_fsf, norm_fsf = glr_spatial_chunked(
@@ -611,8 +657,15 @@ class TorchEngine:
             return tuple(self._upload(w) for w in host)
         ys = torch.as_tensor(ys, dtype=torch.int64, device=self.device)
         xs = torch.as_tensor(xs, dtype=torch.int64, device=self.device)
-        out = (gather_windows(self.input_cube(), ys, xs, sg, 0.0),
-               gather_windows(self.input_var(), ys, xs, sg, float("inf")))
+        h = sg // 2
+
+        def cut(arr, fill):
+            return windowed(
+                lambda c, y, x: gather_windows(c, y + h, x, sg, fill),
+                arr, ys - h, sg, xs)
+
+        out = (cut(self.input_cube(), 0.0), cut(self.input_var(),
+                                                  float("inf")))
         if wmaps is not None:
             wmaps = torch.as_tensor(wmaps, device=self.device)
             out += (gather_windows(wmaps, ys, xs, sg, 0.0),)
@@ -622,8 +675,8 @@ class TorchEngine:
     @staticmethod
     def _std(t):
         """Population standard deviation (``jnp.std``; torch's default
-        ``correction=1`` would be the sample one)."""
-        return float(torch.std(t, correction=0))
+        ``correction=1`` would be the sample one): :func:`std_rows`."""
+        return std_rows(t)
 
     def std_scalar(self, name):
         """Standard deviation of a cube product: the value taken on the
@@ -652,10 +705,167 @@ class TorchEngine:
         """
         if self.tight_memory:
             return {}
+        inputs = (self.input_cube(), self.input_var(), self.input_mask())
         out = {}
         for m, jobs in sorted(jobs_by_size.items()):
             wcube = wcube_fn(m) if wcube_fn is not None else None
-            out.update(batched_source_spectra(
-                self.input_cube(), self.input_var(), self.input_mask(), jobs,
-                wcube))
+
+            def spectra(cubes, y0, group):
+                return batched_source_spectra(
+                    *cubes, [dict(j, y0=int(y)) for j, y in zip(group, y0)],
+                    wcube)
+
+            out.update(windowed(spectra, inputs,
+                                np.asarray([j["y0"] for j in jobs]), m,
+                                np.asarray(jobs, dtype=object)))
         return out
+
+
+class MeshEngine(TorchEngine):
+    """:class:`TorchEngine` over a ``(1 x sp)`` :class:`~origin_tpu_torch.
+    parallel.mesh.Mesh`.
+
+    The interface is :class:`TorchEngine`'s, so the steps run unchanged;
+    the inputs and every cube product live as :class:`~origin_tpu_torch.
+    parallel.mesh.RowShards` over the mesh's ``sp`` slots, never whole on
+    one device, and the steps' device math distributes as in the JAX
+    package's ``MeshEngine``:
+
+    - step 01: per tile the DCT residual and standardization, the channel
+      means summed over the tiles, the local extrema with ``size//2``
+      halo rows (:func:`~origin_tpu_torch.parallel.mesh.preprocess_rows`;
+      the JAX package leaves this step to XLA's partitioner);
+    - step 04: the areas dealt onto the slots, each gathered from the
+      shards onto its slot's device (:func:`~origin_tpu_torch.parallel.
+      pca.greedy_pca_mesh`); the mesh path records no rank-1 factors, so
+      ``cube_faint`` is written dense, as the JAX mesh session writes it;
+    - step 05: the tiles' spatial stage with FSF halo exchange and one
+      sweep launch per tile (:func:`~origin_tpu_torch.parallel.mesh.
+      glr_tile`), mosaics included;
+    - steps 06-11: the purity counts summed tile by tile, the detections
+      found per tile and put in the single device's (z, y, x) order, and
+      every window cut from the one or two tiles that hold its rows
+      (:func:`~origin_tpu_torch.parallel.mesh.windowed`).
+
+    A slot may name the same device as another, so ``sp`` shards can all
+    run on one card.  :attr:`memory_shards` counts the mesh's distinct
+    devices (the JAX engine uses ``sp``): shards on one card do not divide
+    its memory.
+    """
+
+    def __init__(self, orig, mesh, device=None):
+        if "sp" not in mesh.shape:
+            raise ValueError("session mesh needs an 'sp' axis "
+                             "(make_mesh(n, dp=1))")
+        extra = {k: v for k, v in mesh.shape.items()
+                 if k != "sp" and v != 1}
+        if extra:
+            raise ValueError(
+                f"session mesh must be (1 x sp), got extra axes {extra}; "
+                "a session processes one cube — use sharded_detect_batch "
+                "for dp batches of cubes"
+            )
+        ny = orig.shape[1]
+        self.sp = mesh.shape["sp"]
+        if ny % self.sp != 0:
+            raise ValueError(
+                f"Ny={ny} must divide evenly over sp={self.sp} row shards"
+            )
+        self.slots = mesh.row(0)
+        if device is not None:
+            want = resolve_device(device)
+            wrong = [str(d) for d in self.slots
+                     if d.type != want.type
+                     or want.index not in (None, d.index)]
+            if wrong:
+                raise ValueError(
+                    f"mesh slots {wrong} are not on the session's device "
+                    f"{str(want)!r}")
+        self.mesh = mesh
+        # set before the parent's init, which decides the memory mode
+        self.memory_shards = len(mesh.distinct)
+        super().__init__(orig, self.slots[0])
+
+    # -- where the cubes live ------------------------------------------------
+    def resident(self, tensor):
+        if isinstance(tensor, RowShards):
+            return tensor
+        return RowShards.split(tensor, self.slots)
+
+    @staticmethod
+    def _each(fn, *cubes):
+        return cubes[0].map(fn, *cubes[1:])
+
+    @staticmethod
+    def _image(cube, fn):
+        return _host(cube.image(fn))
+
+    # -- step 01 -------------------------------------------------------------
+    def _preprocess(self, dct_order, dct_approx, local_max_size):
+        return preprocess_rows(self.input_cube(), self.input_var(),
+                               self.input_mask(), dct_order, dct_approx,
+                               local_max_size)
+
+    # -- step 04 -------------------------------------------------------------
+    def greedy_pca_by_area(self, areamap, thresholds, testO2,
+                           noise_population=50.0, itermax=100):
+        """Area-parallel greedy PCA over the mesh; no recipe factors (the
+        JAX mesh path keeps the dense fetch)."""
+        faint, mapO2, nstop = greedy_pca_mesh(
+            self.mesh, self.get("cube_std"), areamap, thresholds, testO2,
+            noise_population=noise_population, itermax=itermax)
+        return faint, mapO2, nstop, None
+
+    # -- step 05 -------------------------------------------------------------
+    def tglr(self, psf, wfields, profiles, pcut=1e-8, pmeansub=True, size=3):
+        """Row-sharded GLR matched filter and local extrema
+        (:func:`glr_tile`), the sweep at the session's precision."""
+        faint = self.get("cube_faint")
+        nz, ny, nx = faint.shape
+        if wfields is None:
+            psfs = np.asarray(psf, dtype=np.float32)
+            fields = [psfs[0] if psfs.ndim == 4 else psfs]
+            wtiles = None
+        else:
+            fields = [np.asarray(p, np.float32) for p in psf]
+            wtiles = self._upload_cube(
+                np.stack([np.asarray(w, np.float32) for w in wfields]))
+        halo = max((f.shape[-2] - 1) // 2 for f in fields)
+        ops = [build_tile_spatial_op(f, ny // self.sp, nx, halo,
+                                     device=self.device)[0]
+               for f in fields]
+        prepped = prepare_profiles(profiles, pcut=pcut, pmeansub=pmeansub)
+        t_num, t_den, pad_left, _ = pack_profiles_toeplitz(
+            prepped, block=min(128, nz))
+        (correl, correl_min, profile, lmax, lmin, maxmap,
+         minmap) = glr_tile(faint, self.input_mask(), ops, t_num, t_den,
+                            pad_left, nz, local_max_size=size, halo=halo,
+                            wtiles=wtiles,
+                            precision=self._kernel_precision(),
+                            prof_dtype=_profile_dtype(len(prepped)))
+        dev = dict(cube_correl=correl, cube_correl_min=correl_min,
+                   cube_profile=profile, cube_local_max=lmax,
+                   cube_local_min=lmin)
+        return dev, dict(maxmap=maxmap.to_host(), minmap=minmap.to_host())
+
+    # -- step 07 -------------------------------------------------------------
+    def detections_above(self, name, threshold, gather=()):
+        """The tiles' detections, rows offset to the cube's and sorted
+        into the single device's row-major (z, y, x) order."""
+        arr = self.get(name)
+        extras = [self.get(g) for g in gather]
+        zyx, vals, ex = ([], [], []), [], [[] for _ in gather]
+        for i, t in enumerate(arr.shards):
+            thr = torch.tensor(threshold, dtype=t.dtype, device=t.device)
+            z, y, x = torch.nonzero(t > thr).unbind(1)
+            vals.append(_host(t[z, y, x]))
+            for k, e in enumerate(extras):
+                ex[k].append(_host(e.shards[i][z, y, x]))
+            for k, a in enumerate((z, y + arr.row_start(i), x)):
+                zyx[k].append(_host(a))
+        z, y, x = (np.concatenate(a) for a in zyx)
+        ny, nx = arr.shape[1:]
+        order = np.argsort((z * ny + y) * nx + x, kind="stable")
+        return ((z[order], y[order], x[order]),
+                np.concatenate(vals)[order],
+                [np.concatenate(e)[order] for e in ex])

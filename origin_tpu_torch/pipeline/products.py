@@ -27,6 +27,7 @@ parking and lane accounting are TPU-link machinery and are not ported.
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -40,6 +41,7 @@ from ..core.containers import (
 from ..core.table import Table
 from ..ops.lines import gather_windows
 from ..ops.quant import encode_i16, sparse_i16
+from ..parallel.mesh import RowShards, windowed
 from .recipes import recipes_enabled
 from .spectra_io import load_spectra, save_spectra
 
@@ -81,14 +83,15 @@ def stored_form(form):
 class TensorCube:
     """A cube product that lives on the session's device.
 
-    ``tensor`` is the (Nz, Ny, Nx) torch tensor; ``data`` copies it to a
-    host numpy array on first access (diagnostics, tests).  ``form`` is the
-    compact form it is written in (see :func:`stored_form`), ``recipe`` the
-    writer of its recipe file, and ``scale`` the scale of the compact file
-    it was read from: an unmodified fetch is written again as the file's
-    own integers.  Assigning ``tensor`` or ``data`` replaces the content,
-    which is then written dense, as the JAX package writes replaced
-    content.
+    ``tensor`` is the (Nz, Ny, Nx) torch tensor, or on a mesh session its
+    :class:`~origin_tpu_torch.parallel.mesh.RowShards`; ``data`` copies it
+    to a host numpy array on first access (diagnostics, tests).  ``form``
+    is the compact form it is written in (see :func:`stored_form`),
+    ``recipe`` the writer of its recipe file, and ``scale`` the scale of
+    the compact file it was read from: an unmodified fetch is written
+    again as the file's own integers.  Assigning ``tensor`` or ``data``
+    replaces the content, which is then written dense, as the JAX package
+    writes replaced content.
     """
 
     def __init__(self, tensor, wcs=None, wave=None, form=None, recipe=None,
@@ -139,8 +142,11 @@ class TensorCube:
 
     @data.setter
     def data(self, value):
-        self.tensor = torch.as_tensor(np.asarray(value)).to(
-            self._tensor.device)
+        value = torch.as_tensor(np.asarray(value))
+        if isinstance(self._tensor, RowShards):
+            self.tensor = RowShards.split(value, self._tensor.devices)
+        else:
+            self.tensor = value.to(self._tensor.device)
 
     def write(self, filename):
         """Write the cube in its form (no recipe: see ``_save_cube``); a
@@ -148,12 +154,18 @@ class TensorCube:
         the nonzero entries' pairs come to the host."""
         form = stored_form(self.form)
         dhdr = data_header(self.shape, self.wcs, self.wave)
+        t = self._tensor
+        # row shards encode their tiles as the whole cube's bits
+        sparse, encode = ((t.sparse_i16, t.encode_i16)
+                          if isinstance(t, RowShards)
+                          else (partial(sparse_i16, t),
+                                partial(encode_i16, t)))
         if form == "sparse":
-            idx, q, scale = sparse_i16(self._tensor, self.scale)
+            idx, q, scale = sparse(self.scale)
             write_sparse(filename, idx.cpu().numpy(), q.cpu().numpy(), scale,
                          self.shape, fitsio.Header(), dhdr)
         elif form == "int16":
-            q, scale = encode_i16(self._tensor, self.scale)
+            q, scale = encode(self.scale)
             write_int16(filename, q.cpu().numpy(), scale, fitsio.Header(),
                         dhdr)
         else:
@@ -175,10 +187,12 @@ class TensorCube:
             y, x = center
         size = int(size)
         y0, x0 = cutout_window(y, x, size)
-        ctr = torch.tensor([[y0 + size // 2], [x0 + size // 2]],
-                           device=self._tensor.device)
-        data = gather_windows(self._tensor, ctr[0], ctr[1], size,
-                              0.0)[0].cpu().numpy()
+        h = size // 2
+        data = windowed(
+            lambda c, ys, xs: gather_windows(c, ys + h, xs, size, 0.0),
+            self._tensor, torch.tensor([y0], device=self._tensor.device),
+            size, torch.tensor([x0 + h], device=self._tensor.device),
+        )[0].cpu().numpy()
         ny, nx = self.shape[1:]
         iy, ix = np.arange(y0, y0 + size), np.arange(x0, x0 + size)
         inside = (((iy >= 0) & (iy < ny))[:, None]

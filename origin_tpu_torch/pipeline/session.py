@@ -42,7 +42,7 @@ from ..device import resolve_device
 from ..version import version as __version__
 from . import compat as compat_mod
 from . import steps as steps_mod
-from .engine import TorchEngine
+from .engine import MeshEngine, TorchEngine
 from .params import dump_params
 from .plotting import PlotMixin
 from .steps import Status
@@ -74,14 +74,18 @@ class ORIGIN(PlotMixin):
     Composed of the raw cube + variance, a dictionary of spectral profiles
     and the FSF model; drives steps 01-11 (``step01_preprocessing`` ..
     ``step11_save_sources``) on ``device`` (``"cuda"``, or ``"cpu"`` when
-    asked for).  ``param`` is the parameter tree of a loaded session.
+    asked for), or with ``mesh`` (a ``(1 x sp)``
+    :class:`~origin_tpu_torch.parallel.mesh.Mesh` on that device type)
+    row-sharded over its slots (:class:`.engine.MeshEngine`).  ``param``
+    is the parameter tree of a loaded session.
     """
 
     def __init__(self, filename, device="cuda", name="origin", path=".",
                  loglevel="DEBUG", fieldmap=None, profiles=None, PSF=None,
                  LBDA_FWHM_PSF=None, FWHM_PSF=None, PSF_size=25,
-                 param=None, imawhite=None, wfields=None):
+                 param=None, imawhite=None, wfields=None, mesh=None):
         self.path = path
+        self.mesh = mesh
         self.name = name
         self.outpath = os.path.join(path, name)
         self.param = param or {}
@@ -137,8 +141,10 @@ class ORIGIN(PlotMixin):
             self.cube = Cube(filename)
         self.param["cubename"] = filename
         self.Nz, self.Ny, self.Nx = self.shape = self.cube.shape
-        # the engine decides the session's memory mode from the shape
-        self.engine = TorchEngine(self, device)
+        # the engine decides the session's memory mode from the shape; a
+        # bad mesh fails here
+        self.engine = (TorchEngine(self, device) if self.mesh is None
+                       else MeshEngine(self, self.mesh, device))
         self.wcs = self.cube.wcs
         self.wave = self.cube.wave
 
@@ -192,27 +198,35 @@ class ORIGIN(PlotMixin):
     @classmethod
     def init(cls, cube, fieldmap=None, profiles=None, PSF=None,
              LBDA_FWHM_PSF=None, FWHM_PSF=None, PSF_size=25, name="origin",
-             path=".", loglevel="DEBUG", device="cuda"):
+             path=".", loglevel="DEBUG", device="cuda", mesh=None):
         """Create a session from a cube FITS file (or a ``Cube``).
 
         ``device`` is explicit: ``"cuda"`` (the default) raises when torch
         sees no GPU; ``"cpu"`` runs the plain torch versions on the CPU.
+        ``mesh`` (optional): a ``(1 x sp)`` mesh of that device type
+        (``origin_tpu_torch.parallel.make_mesh(n, dp=1)``, or ``devices=
+        ["cpu"] * n``); the session's cubes then live row-sharded over its
+        slots.
         """
         return cls(
             cube, device=device, path=path, name=name, fieldmap=fieldmap,
             profiles=profiles, PSF=PSF, LBDA_FWHM_PSF=LBDA_FWHM_PSF,
             FWHM_PSF=FWHM_PSF, PSF_size=PSF_size, loglevel=loglevel,
+            mesh=mesh,
         )
 
     @classmethod
-    def load(cls, folder, newname=None, loglevel=None, device="cuda"):
+    def load(cls, folder, newname=None, loglevel=None, device="cuda",
+             mesh=None):
         """Restore a saved session, written by this package, by the JAX
         package or by the reference package (its python-tagged parameter
         file is decoded, :mod:`.compat`); optionally fork it under a new
         name.
 
         ``device`` is explicit, as for :meth:`init`.  The cube products
-        come back on it at their first fetch.
+        come back on it at their first fetch.  A mesh is runtime state,
+        not session state: pass ``mesh=`` again to resume a row-sharded
+        session (the files are the same with or without one).
         """
         import yaml
 
@@ -292,6 +306,7 @@ class ORIGIN(PlotMixin):
             fieldmap=param.get("fieldmap"), wfields=wfields,
             profiles=param["profiles"], PSF=PSF, FWHM_PSF=FWHM_PSF,
             LBDA_FWHM_PSF=LBDA_FWHM_PSF, PSF_size=param.get("PSF_size", 25),
+            mesh=mesh,
         )
 
         for step in obj.steps.values():

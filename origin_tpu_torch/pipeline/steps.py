@@ -54,6 +54,7 @@ from ..ops.cutouts import window_ori_stats
 from ..ops.lines import estimation_line_arrays
 from ..ops.purity import compute_threshold_purity_pair
 from ..ops.stats import compute_thresh_gaussfit, o2test
+from ..parallel.mesh import windowed
 from .products import ProductStore, TensorCube, format_catalog
 from .recipes import is_recipe_file, load_recipe, recipe_writer
 
@@ -140,13 +141,14 @@ class Step:
         """A cube product read back from its session file, on the
         session's device (its first fetch).  It keeps its file's form: the
         recipe, or the scale of a compact file (see ``TensorCube``)."""
-        tensor = torch.from_numpy(np.ascontiguousarray(cube.data))
+        tensor = self.orig.engine.resident(
+            torch.from_numpy(np.ascontiguousarray(cube.data)))
         wire = getattr(cube, "_wire16", None)
         form = scale = None
         if wire is not None:
             form = "int16" if wire.pairs is None else "sparse"
             scale = wire.scale
-        return TensorCube(tensor.to(self.orig.engine.device),
+        return TensorCube(tensor,
                           wcs=self.orig.wcs, wave=self.orig.wave, form=form,
                           scale=scale, recipe=getattr(cube, "recipe", None),
                           recipe_source=getattr(cube, "_recipe_source", None))
@@ -218,8 +220,8 @@ class Step:
     def store_cube_dev(self, name, tensor, recipe=None):
         """Publish a device-resident cube product, in its declared form;
         ``recipe`` is the writer of its recipe file."""
-        self.put(name, TensorCube(tensor, wcs=self.orig.wcs,
-                                  wave=self.orig.wave,
+        self.put(name, TensorCube(self.orig.engine.resident(tensor),
+                                  wcs=self.orig.wcs, wave=self.orig.wave,
                                   form=self.forms.get(name), recipe=recipe))
 
     def recipe(self, kind, payload):
@@ -390,9 +392,7 @@ class ComputePCAThreshold(Step):
     def run(self, orig, pfa_test=0.01):
         # O2 map on device (one (Ny, Nx) download); per-area Gaussian fits
         # on the host
-        o2map = o2test(orig.engine.get("cube_std")).cpu().numpy().astype(
-            np.float64
-        )
+        o2map = orig.engine.image_of("cube_std", o2test).astype(np.float64)
         areamap = orig.areamap.data
         results = []
         for area in range(1, orig.nbAreas + 1):
@@ -439,8 +439,11 @@ class ComputeGreedyPCA(Step):
             self.logger.warning(
                 "iteration cap (%d) hit in %d zone(s)", itermax, nstop
             )
+        # a mesh session's engine records no factors: its cube_faint is
+        # written dense, as the JAX package's mesh session writes it
         self.store_cube_dev("cube_faint", faint,
-                            recipe=self.recipe("pca_faint", factors))
+                            recipe=None if factors is None
+                            else self.recipe("pca_faint", factors))
         self.store_image("mapO2", mapo2)
         self.logger.info(
             "cube_faint / mapO2 ready (nuisance-removed signal + per-spaxel "
@@ -1024,10 +1027,11 @@ class SaveSources(Step):
         for sid, (m, y0, x0, objm, _skym, _zjobs, comp) in meta.items():
             groups.setdefault((comp, m), []).append((sid, y0, x0, objm))
         for (comp, m), rows in groups.items():
-            specs, maxmaps = window_ori_stats(
-                dev_by_comp[comp].tensor, [r[1] for r in rows],
-                [r[2] for r in rows], np.stack([r[3] for r in rows]), int(m)
-            )
+            specs, maxmaps = windowed(
+                lambda c, y, x, o: window_ori_stats(c, y, x, o, int(m)),
+                dev_by_comp[comp].tensor, np.asarray([r[1] for r in rows]),
+                int(m), np.asarray([r[2] for r in rows]),
+                np.stack([r[3] for r in rows]))
             specs, maxmaps = specs.cpu().numpy(), maxmaps.cpu().numpy()
             for i, (sid, _y0, _x0, _o) in enumerate(rows):
                 spectra_pre[sid]["ORI_CORR"] = specs[i]

@@ -2,9 +2,11 @@
 | info``: the cases of tests/test_cli.py with ``--device cpu``, against
 the JAX package's CLI run on the same cube (its power iteration run to its
 whole budget, tests/jax_full_budget.py): the same Cat1 rows (x0, y0, z0,
-profile, comp, ID) and Cat3 counts.  The entry points that are not ported
-raise and name their ROADMAP.md entries, and the default ``--device
-cuda`` raises without a GPU before any session folder is made."""
+profile, comp, ID) and Cat3 counts; ``--mesh 4 --device cpu`` against
+the JAX CLI's ``--mesh 4``.  The entry point that is not ported raises and
+names its ROADMAP.md entry, and the default ``--device cuda`` raises
+without a GPU (``--mesh N`` without N cards) before any session folder is
+made."""
 
 import os
 import shutil
@@ -111,13 +113,39 @@ def test_cli_resume_noop(cube_fn, tmp_path):
 
 
 @pytest.mark.parametrize("flag,entry", [
-    (["--mesh", "2"], "Multi-GPU"),
     (["--overlap-ingest"], "streamed ingest"),
 ])
 def test_cli_unported_flags_name_the_roadmap(cube_fn, tmp_path, flag, entry):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{entry}"):
         main(["run", cube_fn, "--path", str(tmp_path), *RUN, "--device",
               "cpu", *flag])
+    assert os.listdir(tmp_path) == []
+
+
+def test_cli_mesh_matches_jax_mesh(tmp_path):
+    """``--mesh 4 --device cpu`` row-shards the session over 4 CPU slots;
+    its Cat1 rows equal the JAX CLI's ``--mesh 4`` on 4 of the virtual
+    devices (48 rows: 12-row tiles hold the 25 x 25 FSF's halo)."""
+    fn = str(tmp_path / "mesh.fits")
+    make_minicube(fn, nz=300, ny=48, nx=48)
+    argv = ["run", fn, "--path", str(tmp_path), *RUN, "--mesh", "4"]
+    assert main([*argv, "--name", "port", "--device", "cpu"]) == 0
+    with jax_full_budget():
+        assert jax_main([*argv, "--name", "jax"]) == 0
+    rows = _rows(str(tmp_path / "port"), "Cat1")
+    assert len(rows) > 0
+    np.testing.assert_array_equal(
+        rows, _rows(str(tmp_path / "jax"), "Cat1", JTable))
+
+
+def test_cli_mesh_needs_its_cards(cube_fn, tmp_path):
+    """``--mesh N`` on the default ``--device cuda`` takes the first N
+    cards and raises, before any folder is made, when torch sees fewer:
+    it never puts the shards on one card or on the CPU by itself."""
+    n = torch.cuda.device_count() + 1 if torch.cuda.is_available() else 2
+    with pytest.raises(RuntimeError, match="(?i)cuda"):
+        main(["run", cube_fn, "--path", str(tmp_path), *RUN, "--mesh",
+              str(n)])
     assert os.listdir(tmp_path) == []
 
 

@@ -847,3 +847,78 @@ def test_cuda_reference_export_resumes(cuda, tmp_path):
                                           "Cat3_lines", "Cat3_sources"))
     for o in (full, resumed):
         o.close_logfile()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("dico", [DICO_3FWHM, DICO_FWHM_2_12])
+def test_cuda_mesh_tile_sweep_matches_plain(cuda, dico, precision):
+    """A mesh session's sweep input: one (3681, 25, 200) row tile of the
+    3681 x 100 x 200 field at sp=4, with den <= 0 spaxels and a NaN
+    sample, held to the plain sweep by ``_hold`` (each kernel's NaN
+    footprint exactly); one launch."""
+    nz = 3681
+    (x, n, t_num, t_den), pad_left = _problem(dico, nz, 25, 200, cuda,
+                                              nan=True)
+    attr = "launches_bf16x3" if precision == "bf16x3" else "launches"
+    before = getattr(spectral_sweep, attr)
+    got = spectral_sweep(x, n, t_num, t_den, pad_left, nz,
+                         precision=precision)
+    torch.cuda.synchronize()
+    assert getattr(spectral_sweep, attr) == before + 1
+    ref = glr.toeplitz_sweep(x, n, t_num, t_den, pad_left, nz,
+                             precision=precision)
+    _hold(got, ref, x, n, t_num, t_den, pad_left, precision)
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_session_matches_single_device(cuda, tmp_path):
+    """The minicube on a 4-slot mesh of one card (``["cuda:0"] * 4``)
+    against the single-device session, by tests/test_parallel.py's rules:
+    mapO2 agreeing above 0.99, the thresholds within 0.05 / 0.02, and at
+    the single device's thresholds the same Cat0 and Cat1; step 05
+    launches the sweep kernel once per tile."""
+    from origin_tpu_torch.parallel import make_mesh
+    from origin_tpu_torch.parallel.mesh import RowShards
+    from origin_tpu_torch.pipeline.session import ORIGIN
+    from tools_torch.synthetic import make_minicube, make_segmap
+
+    cube_fn, seg_fn = str(tmp_path / "mini.fits"), str(tmp_path / "seg.fits")
+    make_minicube(cube_fn)
+    make_segmap(seg_fn)
+    launches = {}
+
+    def run(name, mesh):
+        orig = ORIGIN.init(cube_fn, name=name, path=str(tmp_path),
+                           loglevel="WARNING", device="cuda", mesh=mesh)
+        orig.step01_preprocessing()
+        orig.step02_areas(minsize=30, maxsize=60)
+        orig.step03_compute_PCA_threshold()
+        orig.step04_compute_greedy_PCA()
+        before = spectral_sweep.launches
+        orig.step05_compute_TGLR()
+        launches[name] = spectral_sweep.launches - before
+        orig.step06_compute_purity_threshold(purity=0.8)
+        return orig
+
+    ref = run("single", None)
+    shd = run("mesh", make_mesh(4, dp=1, devices=["cuda:0"] * 4))
+    assert launches == {"single": 1, "mesh": 4}
+    tiles = shd.steps["compute_TGLR"].store.peek("cube_correl").tensor
+    assert isinstance(tiles, RowShards) and all(
+        s.is_cuda for s in tiles.shards)
+    assert np.mean(shd.mapO2.data == ref.mapO2.data) > 0.99
+    assert abs(shd.param["threshold"] - ref.param["threshold"]) <= 0.05
+    assert abs(shd.param["threshold_std"]
+               - ref.param["threshold_std"]) <= 0.02
+    thr, thr_std = ref.param["threshold"], ref.param["threshold_std"]
+    for o in (ref, shd):
+        o.step07_detection(threshold=thr, threshold_std=thr_std,
+                           segmap=seg_fn)
+    for name in ("Cat0", "Cat1"):
+        keyed = [sorted(zip(*(np.asarray(getattr(o, name)[k]).tolist()
+                              for k in ("x0", "y0", "z0", "comp"))))
+                 for o in (ref, shd)]
+        assert keyed[0] == keyed[1] and len(keyed[0]) > 0, name
+    for o in (ref, shd):
+        o.close_logfile()

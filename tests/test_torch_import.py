@@ -114,6 +114,56 @@ def test_port_runs_without_jax_or_yaml(tmp_path):
     assert "PORT-OK" in res.stdout, tails
 
 
+def test_mesh_and_mosaic_tools_run_without_jax(tmp_path):
+    """``origin_tpu_torch.parallel`` and the two mosaic tools import
+    nothing of jax or of the JAX package: a mesh session's steps 01-07
+    and a sharded batch run with both set to None in ``sys.modules``."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "origin_tpu"):
+            sys.modules[name] = None
+        sys.path[:0] = [{REPO!r}]
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)
+        import origin_tpu_torch.parallel as par
+        from origin_tpu_torch.pipeline.session import ORIGIN
+        from tools_torch import mosaic_batch, mosaic_distributed
+        from tools_torch.synthetic import make_minicube
+
+        path = {str(tmp_path / "m.fits")!r}
+        make_minicube(path, nz=120, ny=32, nx=24)
+        mesh = par.make_mesh(4, dp=1, devices=["cpu"] * 4)
+        orig = ORIGIN.init(path, device="cpu", path={str(tmp_path)!r},
+                           name="mesh", loglevel="WARNING", PSF_size=9,
+                           mesh=mesh)
+        orig.step01_preprocessing()
+        orig.step02_areas(minsize=12, maxsize=24)
+        orig.step03_compute_PCA_threshold()
+        orig.step04_compute_greedy_PCA()
+        orig.step05_compute_TGLR()
+        orig.step06_compute_purity_threshold(purity=0.8)
+        orig.step07_detection()
+        orig.close_logfile()
+        psf, profiles = mosaic_batch.instrument(120, psf_size=7)
+        pipe = par.ShardedPipeline(par.make_mesh(4, dp=2,
+                                                 devices=["cpu"] * 4),
+                                   120, 32, 24, psf, profiles)
+        res = mosaic_batch.run_batches(pipe, [path, path], dp=2)
+        assert np.array_equal(res[0][1], res[1][1])
+        loaded = [m for m, v in sys.modules.items() if v is not None
+                  and m.split(".")[0] in ("jax", "origin_tpu")]
+        assert not loaded, loaded
+        print("MESH-OK")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=str(tmp_path))
+    tails = (f"rc {res.returncode}\n--- stdout:\n{res.stdout[-3000:]}\n"
+             f"--- stderr:\n{res.stderr[-3000:]}")
+    assert res.returncode == 0, tails
+    assert "MESH-OK" in res.stdout, tails
+
+
 def test_unported_entry_points_name_the_roadmap(tmp_path):
     import pytest
 
@@ -123,11 +173,10 @@ def test_unported_entry_points_name_the_roadmap(tmp_path):
 
     path = str(tmp_path / "tiny.fits")
     make_minicube(path, nz=40, ny=10, nx=12)
-    # the CLI's multi-GPU and streamed-ingest flags; the reference
-    # dialect, which raised here before, is ported
-    # (tests/test_torch_compat.py)
-    for flag, entry in ((["--mesh", "2"], "item 4: 'Multi-GPU'"),
-                        (["--overlap-ingest"], "streamed ingest")):
+    # the CLI's streamed-ingest flag; the reference dialect and the
+    # multi-GPU mesh, which raised here before, are ported
+    # (tests/test_torch_compat.py, tests/test_torch_parallel.py)
+    for flag, entry in ((["--overlap-ingest"], "streamed ingest"),):
         with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
             main(["run", path, "--path", str(tmp_path), "--device", "cpu",
                   *flag])
