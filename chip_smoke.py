@@ -121,7 +121,27 @@ h. the full 3681 x 300 x 300 MUSE field (tools_torch/synthetic.make_field,
    within one line of h1's and its correl threshold within 1e-3 (the
    modes' spatial stages differ in float32 order only); step 11 writes
    one file per Cat3 source; a session of the 3681 x 100 x 200 field
-   under the same budget must not be tight.
+   under the same budget must not be tight.  Each run's init wall, its
+   split (decode, host side of the staged copies) and step 01's wait on
+   the copies are printed;
+i. the multi-device path on one card: mesh sessions of the field whose
+   slots all name ``cuda:0`` (i1-i4), and the two mosaic tools (i5);
+j. the streamed ingest: j1 initializes sessions of the field file by the
+   streamed reader and, under ``ORIGIN_TPU_STREAM_INGEST=0``, by the eager
+   one (whose copies start right after the read); their device inputs
+   must be equal bit for bit; printed are each init's wall and split,
+   how long step 01's join waits on the copy stream (CUDA events), step
+   01's wall, and, from one profiled init of each route, the kind of its
+   host-to-device copies (the data and variance must go Pinned ->
+   Device) and their rate in GB/s; j2 runs the CLI survey of two copies
+   of the field file and a bad file (``--no-sources``) without and with
+   ``--overlap-ingest``: rc 1, the float32 sweep launched once per good
+   field, each good field's Cat0/Cat1 equal to phase 5's cold run bit
+   for bit, the two walls printed.
+
+Every fresh session of a field file runs the streamed ingest by default,
+so phases 5 and e-h hold it too (phases 5 and h check that their
+sessions took it).
 
 In phases 4, 5 and d, steps 05-07 are then re-run with the plain versions
 in place of the kernels (after the step 08-11 checks: the re-run replaces
@@ -141,10 +161,10 @@ Every launch counter is set to 0 just before a main-path run and read
 just after it: phase 5's cold run for the float32 sweep, phase d's field
 run for the spatial kernel and the bf16x3 sweep, phase c's entry calls for
 the spaxel-major sweeps, phase e's and phase f's resumed steps 05-11,
-phase g's CLI run and resumed export and phase h's two full-field runs for
-the float32 sweep again.  The next-to-last line of stdout is a JSON record
-of the kernels, the line before it the card's name and power limit, the
-last ``{"ok": true, "device": {...}}``.  Details go to
+phase g's CLI run and resumed export, phase h's two full-field runs and
+phase j's two surveys for the float32 sweep again.  The next-to-last line
+of stdout is a JSON record of the kernels, the line before it the card's
+name and power limit, the last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
 
 Usage: python3 chip_smoke.py
@@ -1135,6 +1155,9 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
             reset_counts()
         orig = ORIGIN.init(field_fn, name=f"field_{precision}_{run}",
                            path=WORK, loglevel="WARNING", device="cuda")
+        if first:
+            check(_reader(orig) == "streamed", f"the {precision} field "
+                  "session took the streamed ingest")
         peaks = {}
         with _Recorder(masks, "line_max_images") as line_calls, \
                 _Recorder(spectra, "source_spectra") as spectra_calls, \
@@ -1895,26 +1918,38 @@ def _mode_run(field_fn, mode, budget):
     try:
         gc.collect()
         torch.cuda.empty_cache()
-        orig = ORIGIN.init(field_fn, name=f"full_{mode}", path=WORK,
-                           loglevel="WARNING", device="cuda")
-        tight = orig.engine.tight_memory
-        walls, peaks, resident = {}, {}, {}
-        reset_counts()
-        for name in STEP_NAMES:
-            torch.cuda.reset_peak_memory_stats()
-            walls.update(_run_steps(orig, STEP_KWARGS, (name,)))
-            peaks[name] = torch.cuda.max_memory_allocated()
-            if name in OFFLOADS:
-                resident[name] = dict(
-                    {n: orig.engine.on_device(n) for n in OFFLOADS[name]},
-                    inputs=orig.engine.inputs_resident())
-        counts = read_counts()
+        with _IngestTimes() as ingest_times:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig = ORIGIN.init(field_fn, name=f"full_{mode}", path=WORK,
+                               loglevel="WARNING", device="cuda")
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            tight = orig.engine.tight_memory
+            walls, peaks, resident = {}, {}, {}
+            reset_counts()
+            for name in STEP_NAMES:
+                torch.cuda.reset_peak_memory_stats()
+                walls.update(_run_steps(orig, STEP_KWARGS, (name,)))
+                peaks[name] = torch.cuda.max_memory_allocated()
+                if name in OFFLOADS:
+                    resident[name] = dict(
+                        {n: orig.engine.on_device(n) for n in OFFLOADS[name]},
+                        inputs=orig.engine.inputs_resident())
+            counts = read_counts()
+            join_ms = ingest_times.join_ms()
     finally:
         TorchEngine.maybe_offload = real_offload
         os.environ.pop("ORIGIN_TPU_HBM_BYTES", None)
         if saved is not None:
             os.environ["ORIGIN_TPU_HBM_BYTES"] = saved
     peak = max(peaks.values())
+    check(_reader(orig) == "streamed", f"the {mode} session took the "
+          "streamed ingest")
+    split = ingest_times.walls
+    log(f"  {mode} init: {init_s:.3f} s (decode {split['read']:.3f} s, "
+        f"staged copies' host side {split['put']:.3f} s), join wait "
+        f"{join_ms} ms")
     for name in STEP_NAMES:
         log(f"  {mode} {name}: {walls[name]:.3f} s, peak "
             f"{peaks[name] / 2**30:.3f} GiB")
@@ -1923,7 +1958,9 @@ def _mode_run(field_fn, mode, budget):
         log(f"  {mode} maybe_offload{f['names']}: "
             f"{(f['before'] - f['after']) / 2**30:.3f} GiB freed of "
             f"{f['nbytes'] / 2**30:.3f} GiB on the card")
-    out = dict(tight=tight, walls=walls, peaks=peaks, peak_bytes=peak,
+    out = dict(tight=tight, init_s=init_s, join_ms=join_ms,
+               ingest=ingest_times.walls, walls=walls, peaks=peaks,
+               peak_bytes=peak,
                total=sum(walls.values()), launches=counts,
                resident=resident, freed=freed, mask_files=nmask,
                source_files=nsrc,
@@ -2695,6 +2732,240 @@ def phase_bf16x3(field, highest):
     return dict(minicube=mini, field=runs, launches=counts)
 
 
+# -- phase j ------------------------------------------------------------------
+SURVEY_RUN = ["--device", "cuda", "--purity", "0.8", "--loglevel", "WARNING",
+              "--no-sources"]
+
+
+class _IngestTimes:
+    """Swaps in wrappers that time a session init's ingest: the streamed
+    decode (``IngestPlan.read``, host wall), the eager decode (``Cube``'s
+    file read), the host side of the staged copies (``_StagedInputs.put``:
+    the copy into a pinned slab and the enqueue) and, for each join at
+    step 01, how long the current stream waits on the copy stream (CUDA
+    events on either side of the join)."""
+
+    def __enter__(self):
+        from origin_tpu_torch.core.containers import Cube
+        from origin_tpu_torch.pipeline import engine, ingest
+
+        self.walls = dict(read=0.0, cube=0.0, put=0.0)
+        self.joins = []
+        self.saved = [(ingest.IngestPlan, "read"), (Cube, "_load"),
+                      (engine._StagedInputs, "put"),
+                      (engine._StagedInputs, "join")]
+        self.saved = [(o, n, getattr(o, n)) for o, n in self.saved]
+        for (owner, name, fn), key in zip(self.saved[:3],
+                                          ("read", "cube", "put")):
+            setattr(owner, name, self._timed(fn, key))
+        join = self.saved[3][2]
+
+        def timed_join(staged):
+            import torch
+
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = join(staged)
+            e1.record()
+            self.joins.append((e0, e1))
+            return out
+
+        engine._StagedInputs.join = timed_join
+        return self
+
+    def _timed(self, fn, key):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.walls[key] += time.perf_counter() - t0
+        return wrapped
+
+    def join_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.joins]
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def _reader(orig):
+    """The reader the session's init took, from the first ingest line of
+    its log."""
+    with open(orig.logfile) as fh:
+        lines = [ln for ln in fh if " ingest: " in ln]
+    if not lines:
+        return None
+    return "streamed" if "ingest: streamed" in lines[0] else "eager"
+
+
+def _h2d_copies(prof, path):
+    """The host-to-device copies of a profile's chrome trace: their
+    kinds (Pinned or Pageable), count, bytes and device ms."""
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.remove(path)
+    out = {}
+    for ev in events:
+        if ev.get("cat") != "gpu_memcpy" or "HtoD" not in ev.get("name", ""):
+            continue
+        row = out.setdefault(ev["name"], dict(count=0, bytes=0, ms=0.0))
+        row["count"] += 1
+        row["bytes"] += int(ev.get("args", {}).get("bytes", 0))
+        row["ms"] += float(ev.get("dur", 0.0)) / 1e3
+    return out
+
+
+def _ingest_init(field_fn, route, name, profile=False):
+    """``ORIGIN.init`` of the field file by ``route`` (``"streamed"``, or
+    ``"eager"`` under ``ORIGIN_TPU_STREAM_INGEST=0``): its wall (device
+    drained at the end) and ingest split, and, unless ``profile``, step
+    01's wall and the join's wait; with ``profile``, the init and the join
+    under ``torch.profiler`` and the host-to-device copies of the trace."""
+    import torch
+
+    from origin_tpu_torch.pipeline.session import ORIGIN
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = os.environ.pop("ORIGIN_TPU_STREAM_INGEST", None)
+    if route == "eager":
+        os.environ["ORIGIN_TPU_STREAM_INGEST"] = "0"
+    out = {}
+    try:
+        with _IngestTimes() as times:
+            if profile:
+                acts = [torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    orig = ORIGIN.init(field_fn, name=name, path=WORK,
+                                       loglevel="WARNING", device="cuda")
+                    orig.engine.input_cube()
+                    torch.cuda.synchronize()
+                out["h2d"] = _h2d_copies(prof, os.path.join(
+                    WORK, f"trace_{name}.json"))
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                orig = ORIGIN.init(field_fn, name=name, path=WORK,
+                                   loglevel="WARNING", device="cuda")
+                torch.cuda.synchronize()
+                out["init_s"] = time.perf_counter() - t0
+                out["step01_s"] = _run_steps(orig, STEP_KWARGS,
+                                             ("step01",))["step01"]
+                out["join_ms"] = times.join_ms()
+        out.update(times.walls)
+    finally:
+        os.environ.pop("ORIGIN_TPU_STREAM_INGEST", None)
+        if saved is not None:
+            os.environ["ORIGIN_TPU_STREAM_INGEST"] = saved
+    out["reader"] = _reader(orig)
+    return orig, out
+
+
+def phase_ingest(field, ref, smi):
+    """j1: the field file's init streamed and eager, their inputs equal on
+    the card bit for bit, the walls, the join's wait and step 01, then one
+    profiled init of each route for the kind and rate of its copies; j2:
+    the CLI survey of two copies of the field and a bad file with and
+    without ``--overlap-ingest``."""
+    import torch
+
+    from origin_tpu_torch.core import Table
+
+    field_fn, _ = field
+    t_phase = time.perf_counter()
+    out = {}
+    cube_bytes = 4 * FIELD[0] * FIELD[1] * FIELD[2]
+
+    # j1: the two routes timed in turns, then their inputs held bit for bit
+    sessions = []
+    for i, route in enumerate(("streamed", "eager", "eager", "streamed")):
+        orig, got = _ingest_init(field_fn, route, f"ingest_{route}_{i}")
+        check(got["reader"] == route, f"j1: the {route} init took the "
+              f"{route} reader")
+        sessions.append(orig)
+        out.setdefault(route, dict(runs=[]))["runs"].append(got)
+        log(f"  j1 {route}: init {got['init_s']:.3f} s (decode "
+            f"{got['read'] or got['cube']:.3f} s, staged copies' host side "
+            f"{got['put']:.3f} s), join wait {got['join_ms']} ms, step 01 "
+            f"{got['step01_s']:.3f} s")
+    first = sessions[0].engine._inputs
+    for orig in sessions[1:]:
+        for name in ("cube", "var", "mask"):
+            got = orig.engine._inputs[name]
+            check(got.is_cuda and torch.equal(got, first[name]),
+                  f"j1: {orig.name}'s input {name} equals {sessions[0].name}"
+                  "'s on the card bit for bit")
+    for orig in sessions:
+        orig.close_logfile()
+        shutil.rmtree(orig.outpath, ignore_errors=True)
+    del sessions, first, got, orig
+    # one profiled init of each route: the kind and rate of the copies
+    for route in ("streamed", "eager"):
+        orig, got = _ingest_init(field_fn, route, f"ingest_{route}_prof",
+                                 profile=True)
+        check(got["reader"] == route, f"j1: the profiled {route} init took "
+              f"the {route} reader")
+        h2d = got["h2d"]
+        pinned = {k: v for k, v in h2d.items() if "Pinned" in k}
+        nbytes = sum(v["bytes"] for v in pinned.values())
+        ms = sum(v["ms"] for v in pinned.values())
+        out[route].update(h2d=h2d, h2d_gbps=nbytes / ms / 1e6 if ms else 0)
+        log(f"  j1 {route} (profiled): host-to-device copies {h2d}; "
+            f"pinned {nbytes} bytes in {ms:.3f} ms of device time, "
+            f"{out[route]['h2d_gbps']:.2f} GB/s ({smi})")
+        check(nbytes >= 2 * cube_bytes, f"j1 {route}: the data and variance "
+              f"({2 * cube_bytes} bytes) went Pinned -> Device")
+        orig.close_logfile()
+        shutil.rmtree(orig.outpath, ignore_errors=True)
+        del orig
+
+    # j2: the survey of [a, b, bad]: with the flag, b is initialized while
+    # a is current and the bad file while b is
+    work = os.path.join(WORK, "survey")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cubes = [os.path.join(work, n) for n in ("a.fits", "b.fits", "bad.fits")]
+    for fn in cubes[:2]:
+        shutil.copyfile(field_fn, fn)
+    with open(cubes[2], "wb") as fh:
+        fh.write(b"not a FITS file")
+    for flag in ([], ["--overlap-ingest"]):
+        label = "overlap" if flag else "plain"
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        rc, _, wall = _cli(["run", *cubes, *SURVEY_RUN, "--name", label,
+                            "--path", work, *flag])
+        counts = read_counts()
+        log(f"  j2 {label}: rc {rc}, {wall:.3f} s, launches {counts} ({smi})")
+        check(rc == 1, f"j2 {label}: the survey reports the bad file (rc 1)")
+        check(counts["toeplitz_sweep"] == 2, f"j2 {label}: toeplitz_sweep "
+              "launched once per good field")
+        for stem in ("a", "b"):
+            folder = os.path.join(work, f"{label}-{stem}")
+            for name in ("Cat0", "Cat1"):
+                cat = Table.read(os.path.join(folder, name + ".fits"))
+                check(_same_rows(cat, ref[name], 0.0), f"j2 {label} field "
+                      f"{stem}: {name} ({len(cat)} rows) equals phase 5's "
+                      "cold run bit for bit")
+            shutil.rmtree(folder, ignore_errors=True)
+        out[f"survey_{label}_s"] = wall
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  j2: the survey of 2 fields and a bad file: plain "
+        f"{out['survey_plain_s']:.3f} s, --overlap-ingest "
+        f"{out['survey_overlap_s']:.3f} s; phase j {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_line(res):
     sweep, sweep3 = res["sweep"][3], res["sweep_bf16x3"][3]
     spatial = res["spatial"]["field"]
@@ -2782,6 +3053,10 @@ def main():
         "tools")
     res["mesh"] = phase_mesh(field, reference, res["bf16x3"],
                              res["versions"]["nvidia_smi"])
+    log("[j] the streamed ingest on cuda: the field's init streamed and "
+        "eager (j1), the CLI survey with --overlap-ingest (j2)")
+    res["ingest"] = phase_ingest(field, reference,
+                                 res["versions"]["nvidia_smi"])
     jaxed = sorted(m for m in sys.modules if m.split(".")[0] in
                    ("jax", "origin_tpu"))
     check(not jaxed, "nothing of JAX or of the JAX package was imported "

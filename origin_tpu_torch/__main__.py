@@ -17,9 +17,10 @@ info     print a saved session's log
 
 ``--mesh N`` row-shards a session over the first N GPUs
 (``make_mesh(N, dp=1)``; it raises when torch sees fewer), or with
-``--device cpu`` over N CPU slots.  ``--overlap-ingest`` (the streamed
-ingest) is not ported: it raises :class:`NotImplementedError` naming its
-ROADMAP.md entry.
+``--device cpu`` over N CPU slots.  ``--overlap-ingest`` pipelines a
+survey: the next field's session is initialized (its FITS decode and its
+copies to the device) before the current field's steps run, so two
+fields' raw inputs are on the device at once.
 """
 
 from __future__ import annotations
@@ -29,19 +30,6 @@ import gc
 import logging
 import os
 import sys
-
-#: the ROADMAP.md entries that name what is not ported, by entry point
-_LATER = {
-    "--overlap-ingest": "section 1, 'Left out on purpose': the streamed "
-                        "ingest",
-}
-
-
-def _not_ported(name):
-    return NotImplementedError(
-        f"{name} is not ported to origin_tpu_torch (ROADMAP.md, "
-        f"{_LATER[name]}); use origin_tpu for it"
-    )
 
 
 def _add_device_arg(p):
@@ -78,7 +66,10 @@ def _add_run_args(p):
     p.add_argument("--no-sources", action="store_true",
                    help="stop after the catalogs (skip masks/source files)")
     p.add_argument("--overlap-ingest", action="store_true",
-                   help="not ported (the streamed ingest): raises")
+                   help="survey mode: initialize the next field (its FITS "
+                   "read and its copies to the device) before the current "
+                   "field's steps run; needs device memory for two fields' "
+                   "raw inputs")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
                    help="row-shard the session over the first N GPUs (a "
                    "(1 x N) mesh; Ny must divide by N), or over N CPU "
@@ -154,8 +145,6 @@ def main(argv=None):
     from origin_tpu_torch.pipeline.session import LOGGER_NAME, ORIGIN
     from origin_tpu_torch.pipeline.steps import Status
 
-    if getattr(args, "overlap_ingest", False):
-        raise _not_ported("--overlap-ingest")
     if getattr(args, "precision", None):
         os.environ["ORIGIN_TPU_PRECISION"] = args.precision
     device = resolve_device(args.device)  # a missing GPU fails before I/O
@@ -170,26 +159,70 @@ def main(argv=None):
     if args.command == "run":
         multi = len(args.cube) > 1
         failures = []
-        for cube_fn in args.cube:
+        logger = logging.getLogger(LOGGER_NAME)
+
+        def _init(cube_fn):
             name = args.name
             if multi:
                 stem = os.path.splitext(os.path.basename(cube_fn))[0]
                 name = f"{args.name}-{stem}"
+            return ORIGIN.init(cube_fn, name=name, path=args.path,
+                               loglevel=args.loglevel,
+                               profiles=args.profiles,
+                               fieldmap=args.fieldmap, PSF=args.psf,
+                               device=args.device, mesh=mesh)
+
+        # --overlap-ingest: field N+1's session is initialized while field
+        # N's is current, before field N's steps run
+        pending = []  # [(cube_fn, ORIGIN or None when its init failed)]
+
+        # the sessions share one logger, so a pre-ingested field's file
+        # handler would record the current field's steps: it is detached
+        # once its init lines are written, and attached again when its own
+        # steps start
+        def _detach_log(orig):
+            if orig.file_handler in orig.logger.handlers:
+                orig.logger.removeHandler(orig.file_handler)
+
+        def _attach_log(orig):
+            h = orig.file_handler
+            if h is not None and h not in orig.logger.handlers:
+                orig.logger.addHandler(h)
+
+        def _pop_session(cube_fn):
+            if not pending:
+                return _init(cube_fn)
+            fn, orig = pending.pop(0)
+            if orig is None:
+                raise RuntimeError(f"initialization failed for {fn}")
+            _attach_log(orig)
+            return orig
+
+        for i, cube_fn in enumerate(args.cube):
             # survey mode: one bad cube must not abort the remaining
             # fields; no field's logfile handler outlives its run
             orig = None
             try:
-                orig = ORIGIN.init(cube_fn, name=name, path=args.path,
-                                   loglevel=args.loglevel,
-                                   profiles=args.profiles,
-                                   fieldmap=args.fieldmap, PSF=args.psf,
-                                   device=args.device, mesh=mesh)
+                orig = _pop_session(cube_fn)
+                if args.overlap_ingest and i + 1 < len(args.cube):
+                    nxt_fn = args.cube[i + 1]
+                    _detach_log(orig)
+                    try:
+                        nxt = _init(nxt_fn)
+                        _detach_log(nxt)
+                        pending.append((nxt_fn, nxt))
+                    except Exception:
+                        logger.exception("survey: pre-ingest of %s failed",
+                                         nxt_fn)
+                        pending.append((nxt_fn, None))
+                    finally:
+                        _attach_log(orig)
                 _steps_from(orig, args, start_at=1)
             except Exception:
                 if not multi:
                     raise
                 failures.append(cube_fn)
-                logging.getLogger(LOGGER_NAME).exception(
+                logger.exception(
                     "survey: %s failed; continuing with the next cube",
                     cube_fn,
                 )

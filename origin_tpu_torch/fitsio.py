@@ -1,7 +1,7 @@
 """Minimal, dependency-free FITS reader/writer.
 
 (The port's copy of the reading and writing half of ``origin_tpu/fitsio.py``,
-and of its ``getheader``.)
+and of its ``getheader`` and ``scan``.)
 
 The reference pipeline (musevlt/origin) leans on astropy.io.fits and mpdaf for
 all of its FITS I/O.  Neither is available in this environment, and the
@@ -27,7 +27,7 @@ from collections import OrderedDict
 
 import numpy as np
 
-__all__ = ["Header", "HDU", "read", "write", "getdata", "getheader"]
+__all__ = ["Header", "HDU", "read", "scan", "write", "getdata", "getheader"]
 
 BLOCK = 2880
 CARDLEN = 80
@@ -463,6 +463,38 @@ def _write_bintable(columns, header):
 # ---------------------------------------------------------------------------
 # reading
 # ---------------------------------------------------------------------------
+
+def scan(filename):
+    """Headers and payload byte offsets of every HDU; no payload is read.
+
+    Returns a list of ``(header, data_offset, data_nbytes)`` tuples (the
+    offset of the first payload byte and its unpadded length; 0 bytes for
+    headerless HDUs), so that a streaming reader (``pipeline.ingest``)
+    can read an image payload region by region.
+    """
+    out = []
+    with open(filename, "rb") as fh:
+        while True:
+            hdr = _read_header(fh)
+            if hdr is None:
+                break
+            naxis = int(hdr.get("NAXIS", 0))
+            dims = [int(hdr[f"NAXIS{i}"]) for i in range(1, naxis + 1)]
+            nelem = int(np.prod(dims)) if dims else 0
+            if str(hdr.get("XTENSION", "")).strip() == "BINTABLE":
+                nbytes = int(hdr["NAXIS1"]) * int(hdr["NAXIS2"]) + int(
+                    hdr.get("PCOUNT", 0)
+                )
+            elif naxis == 0 or nelem == 0:
+                nbytes = 0
+            else:
+                nbytes = nelem * _BITPIX_TO_DTYPE[int(hdr["BITPIX"])].itemsize
+            out.append((hdr, fh.tell(), nbytes))
+            fh.seek(_padded(nbytes), 1)
+    if not out:
+        raise OSError(f"empty FITS file: {filename}")
+    return out
+
 
 def read(filename):
     """Read all HDUs of a FITS file. Returns list of HDU objects."""

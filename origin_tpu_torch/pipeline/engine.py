@@ -11,8 +11,15 @@ per-line and per-source results come back to the host.
 
 Steps 01 and 04 also bring their products' recipe payloads to the host
 (the DCT coefficients and channel means, the greedy PCA's rank-1 factors),
-which the session stores in place of the dense cubes (``recipes.py``).  The
-JAX engine's transfer machinery (streamed ingest, int16 and bit-packed
+which the session stores in place of the dense cubes (``recipes.py``).
+
+The raw cube and variance reach the device as the JAX engine's do, behind
+the host work of the session's init: streamed slab by slab while the FITS
+file decodes (:meth:`TorchEngine.stream_inputs`, ``ingest.py``), or copied
+right after an eager read (:meth:`TorchEngine.prefetch_inputs`).  On CUDA
+the copies are staged through a ring of page-locked slab buffers
+(:class:`_SlabRing`) and run on a copy stream of their own; step 01 joins
+them.  The JAX engine's other transfer machinery (int16 and bit-packed
 wires, speculative and bucketed compaction) exists for a slow TPU host
 link and is not ported.
 
@@ -29,8 +36,10 @@ the host path.
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import os
+import threading
 
 import numpy as np
 import torch
@@ -58,6 +67,7 @@ from ..parallel.mesh import (
     RowShards, build_tile_spatial_op, glr_tile, preprocess_rows, std_rows,
     windowed)
 from ..parallel.pca import greedy_pca_mesh
+from . import ingest
 from .products import Parked, TensorCube
 from .recipes import recipes_enabled
 
@@ -101,6 +111,119 @@ def _fill_var(var_raw, mask):
     """The inf-filled variance (the host ``var_filled`` view) on device."""
     return torch.where(mask | ~torch.isfinite(var_raw), float("inf"),
                        var_raw)
+
+
+class _SlabRing:
+    """A ring of host slab buffers through which host arrays are copied to
+    a device.
+
+    On CUDA the buffers are page-locked: a ``non_blocking`` copy from
+    pageable memory would be synchronous and serialize the copies behind
+    the decode again.  A buffer is refilled only once the event recorded
+    behind its last copy has completed.  One ring per process
+    (:func:`_slab_ring`), reused by every session.
+    """
+
+    SLOTS = 3
+
+    def __init__(self, nbytes, pinned):
+        n = max(1, nbytes // 4)
+        self.bufs = [torch.empty(n, dtype=torch.float32, pin_memory=pinned)
+                     for _ in range(self.SLOTS)]
+        self.events = [None] * self.SLOTS
+        self.slot = 0
+        self.lock = threading.Lock()
+
+    def copy(self, dst, src, stream):
+        """Copy the host array ``src`` (any real dtype, cast to float32)
+        into the contiguous float32 tensor ``dst`` of its size, a buffer's
+        worth at a time; on CUDA asynchronously on ``stream``."""
+        dst = dst.view(-1)
+        src = torch.from_numpy(np.ascontiguousarray(src).reshape(-1))
+        if src.numel() != dst.numel():
+            raise ValueError(f"slab of {src.numel()} values for "
+                             f"{dst.numel()}")
+        step = self.bufs[0].numel()
+        with self.lock:
+            for off in range(0, src.numel(), step):
+                n = min(step, src.numel() - off)
+                slot, self.slot = self.slot, (self.slot + 1) % self.SLOTS
+                if self.events[slot] is not None:
+                    self.events[slot].synchronize()  # its last copy ran
+                buf = self.bufs[slot][:n]
+                buf.copy_(src[off:off + n])
+                if stream is None:
+                    dst[off:off + n].copy_(buf)
+                    continue
+                with torch.cuda.stream(stream):
+                    dst[off:off + n].copy_(buf, non_blocking=True)
+                    self.events[slot] = torch.cuda.Event()
+                    self.events[slot].record(stream)
+
+
+_RINGS = {}
+_RINGS_LOCK = threading.Lock()
+
+
+def _slab_ring(pinned):
+    """The process's :class:`_SlabRing` of ``ingest._SLAB_BYTES`` buffers,
+    page-locked or not."""
+    with _RINGS_LOCK:
+        if pinned not in _RINGS:
+            _RINGS[pinned] = _SlabRing(ingest._SLAB_BYTES, pinned)
+        return _RINGS[pinned]
+
+
+class _StagedInputs:
+    """The raw cube and variance on their way to the device.
+
+    Each is allocated once, at the field's shape, on the current stream,
+    and filled in z order by :meth:`put` through the process's slab ring.
+    On CUDA the copies run on a stream of their own, which first waits on
+    the allocating stream; :meth:`join` makes the current stream wait on
+    it.  On the CPU the same path copies synchronously.
+    """
+
+    def __init__(self, device, shape, with_var):
+        self.stream = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.Stream(device)
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+        kinds = ("data", "var") if with_var else ("data",)
+        self.raw = {k: torch.empty(shape, dtype=torch.float32, device=device)
+                    for k in kinds}
+        self.filled = dict.fromkeys(kinds, 0)
+        if self.stream is not None:
+            for t in self.raw.values():
+                # the allocator frees them only once their copies ran
+                t.record_stream(self.stream)
+        self.ring = _slab_ring(pinned=self.stream is not None)
+
+    def put(self, kind, slab):
+        """Copy the next z-slab of input ``kind`` (``"data"``, ``"var"``)."""
+        z0 = self.filled[kind]
+        z1 = z0 + len(slab)
+        self.ring.copy(self.raw[kind][z0:z1], slab, self.stream)
+        self.filled[kind] = z1
+
+    def join(self):
+        """``{"data": tensor, "var": tensor or None}``, handed over once,
+        with the current stream made to wait for their copies."""
+        for kind, t in self.raw.items():
+            if self.filled[kind] != t.shape[0]:
+                raise RuntimeError(f"staged input {kind!r} holds "
+                                   f"{self.filled[kind]} of {t.shape[0]} "
+                                   "planes")
+        if self.stream is not None:
+            torch.cuda.current_stream(self.stream.device).wait_stream(
+                self.stream)
+        raw, self.raw = self.raw, {}
+        return dict(data=raw["data"], var=raw.get("var"))
+
+    def synchronize(self):
+        """Wait until every copy queued so far has run."""
+        if self.stream is not None:
+            self.stream.synchronize()
 
 
 def _host_windows(cube, ys, xs, sg, wmaps=None):
@@ -190,6 +313,7 @@ class TorchEngine:
         self.device = resolve_device(device)
         set_precision()
         self._inputs = {}
+        self._staged = None
         self._host_cut = False
         self._tight = None
         if getattr(orig, "shape", None) is not None:
@@ -258,38 +382,81 @@ class TorchEngine:
         """:meth:`_image` of cube product ``name`` (``o2test``)."""
         return self._image(self.get(name), fn)
 
-    def _ensure_inputs(self, *names):
-        """Upload the inputs ``names`` that are not on the device.
+    def stream_inputs(self, plan):
+        """Decode the cube file of ``plan`` (an :class:`~.ingest.
+        IngestPlan`) and copy its raw data and variance to the device, slab
+        by slab while the decode runs (:class:`_StagedInputs`); returns the
+        host :class:`Cube`.  Step 01 joins the copies
+        (:meth:`_ensure_inputs`)."""
+        staged = self._staged = _StagedInputs(self.device, plan.shape,
+                                              plan.has_var)
+        return plan.read(upload_data=functools.partial(staged.put, "data"),
+                         upload_var=functools.partial(staged.put, "var"))
 
-        A cube without a mask extension uploads its raw data and variance
-        and derives the zero-filled cube, the inf-filled variance and the
-        NaN mask on device (from the resident mask when there is one);
-        otherwise the host views are uploaded.
+    def prefetch_inputs(self):
+        """Start the copies of the session cube's raw data and variance to
+        the device (:class:`_StagedInputs`), for a cube read eagerly, so
+        that they run behind the rest of the session's init; step 01 joins
+        them.  Nothing is done for inputs already staged or on the device,
+        or for a cube whose mask is not its data's non-finite pattern
+        (step 01 uploads its host views)."""
+        c = self.orig.cube
+        derived = (getattr(c, "_mask_is_nonfinite", False)
+                   and c.mask is getattr(c, "_derived_mask", ()))
+        if self._staged is not None or "cube" in self._inputs or (
+                c.mask is not None and not derived):
+            return
+        staged = _StagedInputs(self.device, c.shape, c.var is not None)
+        staged.put("data", c.data)
+        if c.var is not None:
+            staged.put("var", c.var)
+        self._staged = staged
+
+    def _ensure_inputs(self, *names):
+        """Put the inputs ``names`` that are not on the device there.
+
+        Staged inputs (:meth:`stream_inputs`, :meth:`prefetch_inputs`) are
+        joined, and the zero-filled cube, the inf-filled variance and the
+        NaN mask derived from them on the device.  Otherwise a cube without
+        a mask uploads its raw data and variance and derives the three the
+        same way (from the resident mask when there is one), and a cube
+        with a mask uploads the host views.
         """
         missing = [n for n in names if n not in self._inputs]
         if not missing:
             return
         orig, c = self.orig, self.orig.cube
         up, each = self._upload_cube, self._each
-        if c.mask is not None:
+        staged, self._staged = self._staged, None
+        if staged is not None:
+            raws = staged.join()
+            missing = [n for n in ("cube", "var", "mask")
+                       if n not in self._inputs]
+        elif c.mask is not None:
             views = dict(cube=lambda: orig.cube_raw, var=lambda: orig.var,
                          mask=lambda: orig.mask)
             for n in missing:
                 self._inputs[n] = up(views[n]())
             return
+
+        def raw(kind):
+            if staged is not None:
+                return raws.pop(kind)
+            arr = c.data if kind == "data" else c.var
+            return None if arr is None else up(np.asarray(arr, np.float32))
+
         mask = self._inputs.get("mask")
         if "cube" in missing or mask is None:
-            raw = up(np.asarray(c.data, np.float32))
+            data = raw("data")
             if mask is None:
                 mask = self._inputs["mask"] = each(
-                    lambda r: ~torch.isfinite(r), raw)
+                    lambda r: ~torch.isfinite(r), data)
             if "cube" in missing:
-                self._inputs["cube"] = each(_fill_cube, raw, mask)
-            del raw
+                self._inputs["cube"] = each(_fill_cube, data, mask)
+            del data
         if "var" in missing:
-            if c.var is not None:
-                var_raw = up(np.asarray(c.var, np.float32))
-            else:
+            var_raw = raw("var")
+            if var_raw is None:
                 var_raw = each(lambda m: torch.ones(
                     m.shape, dtype=torch.float32, device=m.device), mask)
             self._inputs["var"] = each(_fill_var, var_raw, mask)
@@ -427,9 +594,14 @@ class TorchEngine:
         after a failure: the engine's input tensors go, and so does every
         live cube product (:meth:`ProductStore.release`: one read back
         from its session file points at it again, one never written loses
-        its content).  On a CUDA device the allocator's cached blocks are
-        then returned, so the next field starts with the card's memory.
+        its content).  Copies of staged inputs still queued are waited for
+        first, so that none writes into freed memory.  On a CUDA device the
+        allocator's cached blocks are then returned, so the next field
+        starts with the card's memory.
         """
+        if self._staged is not None:
+            self._staged.synchronize()
+            self._staged = None
         self._inputs.clear()
         for step in self.orig.steps.values():
             step.store.release(self.orig.outpath)

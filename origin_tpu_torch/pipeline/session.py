@@ -14,6 +14,8 @@ reference package's dialect (its python-tagged parameter file) loads, and
 ``write(compat="reference")`` exports one (:mod:`.compat`).  The
 reporting methods (``info``, ``status``, ``timestat``, ``stat``) and the
 diagnostic plots (:class:`.plotting.PlotMixin`) are the JAX session's.
+A fresh single-device session given a file name streams its cube to the
+device while the file decodes (:mod:`.ingest`), as the JAX session does.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ..core.table import Table
 from ..device import resolve_device
 from ..version import version as __version__
 from . import compat as compat_mod
+from . import ingest as ingest_mod
 from . import steps as steps_mod
 from .engine import MeshEngine, TorchEngine
 from .params import dump_params
@@ -108,13 +111,14 @@ class ORIGIN(PlotMixin):
         try:
             self._init_session(filename, device, fieldmap, profiles, PSF,
                                LBDA_FWHM_PSF, FWHM_PSF, PSF_size, imawhite,
-                               wfields)
+                               wfields, fresh=param is None)
         except Exception:
             self.close_logfile()
             raise
 
     def _init_session(self, filename, device, fieldmap, profiles, PSF,
-                      LBDA_FWHM_PSF, FWHM_PSF, PSF_size, imawhite, wfields):
+                      LBDA_FWHM_PSF, FWHM_PSF, PSF_size, imawhite, wfields,
+                      fresh):
         self.logger.info("Step 00 - Initialization (ORIGIN v%s, torch on %s)",
                          __version__, device)
 
@@ -133,18 +137,38 @@ class ORIGIN(PlotMixin):
             for pname in step.store.names():
                 self._product_owner[pname] = step
 
-        if isinstance(filename, Cube):
-            self.cube = filename
-            filename = getattr(filename, "filename", None)
+        # a fresh single-device session given a file name streams it: the
+        # FITS decode runs in z-slabs and each slab is copied to the device
+        # as it is byteswapped (ingest.py); a layout that cannot stream is
+        # read eagerly and its copies start right after.  An in-memory
+        # Cube, a loaded session and a mesh session upload at step 01.
+        plan = None
+        cube = filename if isinstance(filename, Cube) else None
+        if cube is not None:
+            filename = getattr(cube, "filename", None)
         else:
             self.logger.info("Read the Data Cube %s", filename)
-            self.cube = Cube(filename)
+            if fresh and self.mesh is None:
+                plan = ingest_mod.IngestPlan.scan(filename)
         self.param["cubename"] = filename
-        self.Nz, self.Ny, self.Nx = self.shape = self.cube.shape
-        # the engine decides the session's memory mode from the shape; a
-        # bad mesh fails here
-        self.engine = (TorchEngine(self, device) if self.mesh is None
-                       else MeshEngine(self, self.mesh, device))
+        if plan is not None:
+            self.Nz, self.Ny, self.Nx = self.shape = plan.shape
+            # the engine decides the session's memory mode from the shape
+            self.engine = TorchEngine(self, device)
+            self.logger.info("ingest: streamed, %d-byte slabs copied to %s "
+                             "as they decode", ingest_mod._SLAB_BYTES,
+                             self.engine.device)
+            self.cube = self.engine.stream_inputs(plan)
+        else:
+            self.cube = cube if cube is not None else Cube(filename)
+            self.Nz, self.Ny, self.Nx = self.shape = self.cube.shape
+            # a bad mesh fails here
+            self.engine = (TorchEngine(self, device) if self.mesh is None
+                           else MeshEngine(self, self.mesh, device))
+            if fresh and self.mesh is None and cube is None:
+                self.logger.info("ingest: eager read, copies to %s started",
+                                 self.engine.device)
+                self.engine.prefetch_inputs()
         self.wcs = self.cube.wcs
         self.wave = self.cube.wave
 

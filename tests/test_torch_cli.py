@@ -3,10 +3,9 @@
 the JAX package's CLI run on the same cube (its power iteration run to its
 whole budget, tests/jax_full_budget.py): the same Cat1 rows (x0, y0, z0,
 profile, comp, ID) and Cat3 counts; ``--mesh 4 --device cpu`` against
-the JAX CLI's ``--mesh 4``.  The entry point that is not ported raises and
-names its ROADMAP.md entry, and the default ``--device cuda`` raises
+the JAX CLI's ``--mesh 4``.  The default ``--device cuda`` raises
 without a GPU (``--mesh N`` without N cards) before any session folder is
-made."""
+made.  ``--overlap-ingest`` is held in tests/test_torch_ingest.py."""
 
 import os
 import shutil
@@ -110,16 +109,6 @@ def test_cli_resume_noop(cube_fn, tmp_path):
     assert rc == 0
     assert os.stat(cat1).st_mtime_ns == before[0]
     np.testing.assert_array_equal(_rows(folder, "Cat1"), before[1])
-
-
-@pytest.mark.parametrize("flag,entry", [
-    (["--overlap-ingest"], "streamed ingest"),
-])
-def test_cli_unported_flags_name_the_roadmap(cube_fn, tmp_path, flag, entry):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{entry}"):
-        main(["run", cube_fn, "--path", str(tmp_path), *RUN, "--device",
-              "cpu", *flag])
-    assert os.listdir(tmp_path) == []
 
 
 def test_cli_mesh_matches_jax_mesh(tmp_path):

@@ -922,3 +922,69 @@ def test_cuda_mesh_session_matches_single_device(cuda, tmp_path):
         assert keyed[0] == keyed[1] and len(keyed[0]) > 0, name
     for o in (ref, shd):
         o.close_logfile()
+
+
+# -- the streamed ingest (pipeline/ingest.py, TorchEngine.stream_inputs) ----
+def _ingest_inputs(orig):
+    eng = orig.engine
+    return tuple(t.cpu() for t in (eng.input_cube(), eng.input_var(),
+                                   eng.input_mask()))
+
+
+@pytest.mark.gpu
+def test_cuda_streamed_inputs_equal_the_cpu_route(cuda, tmp_path,
+                                                  monkeypatch):
+    """The minicube (NaN voxels, STAT) streamed to the card in several
+    slabs, through pinned buffers on a copy stream: its inputs equal, bit
+    for bit, the CPU route's, the eager read's with its copies started at
+    init and the upload at step 01's."""
+    from origin_tpu_torch.pipeline import engine as tengine
+    from origin_tpu_torch.pipeline import ingest
+    from origin_tpu_torch.pipeline.session import ORIGIN
+    from tools_torch.synthetic import make_minicube
+
+    fn = str(tmp_path / "mini.fits")
+    make_minicube(fn)
+    monkeypatch.setattr(ingest, "_SLAB_BYTES", 10 ** 6)
+    kw = dict(path=str(tmp_path), loglevel="WARNING")
+    streamed = ORIGIN.init(fn, name="streamed", device="cuda", **kw)
+    staged = streamed.engine._staged
+    assert staged is not None and staged.stream is not None
+    assert staged.stream != torch.cuda.current_stream()
+    assert all(t.is_cuda for t in staged.raw.values())
+    ring = tengine._RINGS[True]
+    assert all(b.is_pinned() for b in ring.bufs)
+    assert ring.events[0] is not None  # the ring took the copies
+    cpu = ORIGIN.init(fn, name="cpu", device="cpu", **kw)
+    monkeypatch.setenv("ORIGIN_TPU_STREAM_INGEST", "0")
+    eager = ORIGIN.init(fn, name="eager", device="cuda", **kw)
+    assert eager.engine._staged is not None
+    step01 = ORIGIN.init(fn, name="step01", device="cuda", **kw)
+    step01.engine.release()
+    got = _ingest_inputs(streamed)
+    assert bool(got[2].any())
+    for other in (cpu, eager, step01):
+        for a, b in zip(got, _ingest_inputs(other)):
+            assert torch.equal(a, b), other.name
+    for o in (streamed, cpu, eager, step01):
+        o.close_logfile()
+
+
+@pytest.mark.gpu
+def test_cuda_release_mid_stream_leaves_no_pending_copy(cuda):
+    """``release()`` of an engine whose inputs are still being copied
+    waits for the copies before it drops them."""
+    from types import SimpleNamespace
+
+    from origin_tpu_torch.pipeline import engine as tengine
+
+    orig = SimpleNamespace(shape=(64, 512, 512), steps={}, outpath=".")
+    eng = tengine.TorchEngine(orig, "cuda")
+    staged = tengine._StagedInputs(eng.device, orig.shape, True)
+    host = np.random.default_rng(0).random(orig.shape, np.float32)
+    staged.put("data", host[:48])  # 48 of 64 planes queued
+    eng._staged = staged
+    eng.release()
+    assert eng._staged is None and staged.stream.query()
+    torch.testing.assert_close(staged.raw["data"][:48].cpu(),
+                               torch.from_numpy(host[:48]), rtol=0, atol=0)

@@ -52,6 +52,11 @@ def test_port_runs_without_jax_or_yaml(tmp_path):
                                        path={str(tmp_path)!r}, name=prec,
                                        loglevel="WARNING")
             assert orig.engine.device.type == "cpu"
+            # a fresh session given a file name takes the streamed ingest
+            # (pipeline/ingest.py), held here to import no jax
+            with open(orig.logfile) as fh:
+                assert "ingest: streamed" in fh.read()
+            assert orig.engine._staged is not None
             assert orig.engine.input_cube().device.type == "cpu"
             orig.step01_preprocessing()
             orig.step02_areas(minsize=30, maxsize=60)
@@ -165,7 +170,7 @@ def test_mesh_and_mosaic_tools_run_without_jax(tmp_path):
 
 
 def test_unported_entry_points_name_the_roadmap(tmp_path):
-    import pytest
+    import shutil
 
     from make_minicube import make_minicube
     from origin_tpu_torch.__main__ import main
@@ -173,14 +178,18 @@ def test_unported_entry_points_name_the_roadmap(tmp_path):
 
     path = str(tmp_path / "tiny.fits")
     make_minicube(path, nz=40, ny=10, nx=12)
-    # the CLI's streamed-ingest flag; the reference dialect and the
-    # multi-GPU mesh, which raised here before, are ported
-    # (tests/test_torch_compat.py, tests/test_torch_parallel.py)
-    for flag, entry in ((["--overlap-ingest"], "streamed ingest"),):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-            main(["run", path, "--path", str(tmp_path), "--device", "cpu",
-                  *flag])
-        assert entry in str(exc.value)
+    # the CLI's --overlap-ingest, the reference dialect and the multi-GPU
+    # mesh, which raised here before, are ported
+    # (tests/test_torch_ingest.py, tests/test_torch_compat.py,
+    # tests/test_torch_parallel.py)
+    second = str(tmp_path / "tiny2.fits")
+    shutil.copy(path, second)
+    assert main(["run", path, second, "--name", "ovl", "--path",
+                 str(tmp_path), "--device", "cpu", "--no-sources",
+                 "--minsize", "4", "--loglevel", "WARNING",
+                 "--overlap-ingest"]) == 0
+    for stem in ("tiny", "tiny2"):
+        assert os.path.isfile(str(tmp_path / f"ovl-{stem}" / "Cat1.fits"))
     orig = ORIGIN.init(path, device="cpu", path=str(tmp_path), name="t",
                        loglevel="WARNING")
     ref = tmp_path / "ref"

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Per-step device profile of origin_tpu_torch's steps 01-11 on one GPU.
 
-Runs steps 01-11 on the synthetic 3681x100x200 field (tools_torch/synthetic.py)
-(seed 7, default parameters, purity 0.8, source files of version "0.1";
-chip_smoke.STEP_KWARGS) twice: once cold, once warm under
-``torch.profiler``.  For each step of the warm run it prints the host wall
+Runs the session's init and steps 01-11 on the synthetic 3681x100x200
+field (tools_torch/synthetic.py; seed 7, written to a FITS file that the
+init reads, as a user's session does; default parameters, purity 0.8,
+source files of version "0.1"; chip_smoke.STEP_KWARGS) twice: once cold,
+once warm under ``torch.profiler``.  For the init and each step of the
+warm run it prints the host wall
 (with the device drained at both ends), the device-busy time (the union of
 the GPU kernel and memcpy intervals inside the step's window) and the idle
 share ``1 - busy / wall``, and the step's three ops with the most device
@@ -22,6 +24,7 @@ Usage: python3 tools_torch/profile_field.py  (with ORIGIN_TPU_PRECISION=bf16x3
 in the environment for the bf16x3 mode)
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -101,13 +104,21 @@ def main():
     from origin_tpu_torch.pipeline.session import ORIGIN
     from tools_torch.synthetic import make_field
 
-    cube, _ = make_field(*chip_smoke.FIELD, seed=7)
     os.makedirs(chip_smoke.WORK, exist_ok=True)
+    cube_fn = os.path.join(chip_smoke.WORK, "profile_field.fits")
+    make_field(*chip_smoke.FIELD, seed=7)[0].write(cube_fn)
+    names = ("init",) + chip_smoke.STEP_NAMES
 
     def run(name, traced):
-        orig = ORIGIN.init(cube, name=name, path=chip_smoke.WORK,
-                           loglevel="WARNING", device="cuda")
         walls = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (record_function("init") if traced
+              else contextlib.nullcontext()):
+            orig = ORIGIN.init(cube_fn, name=name, path=chip_smoke.WORK,
+                               loglevel="WARNING", device="cuda")
+            torch.cuda.synchronize()
+        walls["init"] = time.perf_counter() - t0
         for step in chip_smoke.STEP_NAMES:
             method = getattr(orig, next(m for m in dir(orig)
                                         if m.startswith(step + "_")))
@@ -131,14 +142,14 @@ def main():
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         warm = run("profile_warm", traced=True)
+    os.remove(cube_fn)
 
     events = prof.events()
     device = [(e.time_range.start, e.time_range.end, e.name) for e in events
-              if e.device_type == DeviceType.CUDA
-              and e.name not in chip_smoke.STEP_NAMES]
+              if e.device_type == DeviceType.CUDA and e.name not in names]
     steps = {}
     for e in events:
-        if e.name in chip_smoke.STEP_NAMES and e.device_type == DeviceType.CPU:
+        if e.name in names and e.device_type == DeviceType.CPU:
             a, b = e.time_range.start, e.time_range.end
             inside = [(max(x, a), min(y, b), name) for x, y, name in device
                       if y > a and x < b]
@@ -154,7 +165,7 @@ def main():
     ops = sorted(((k.key, k.self_device_time_total, k.count)
                   for k in prof.key_averages()
                   if k.self_device_time_total > 0
-                  and k.key not in chip_smoke.STEP_NAMES),
+                  and k.key not in names),
                  key=lambda r: -r[1])[:20]
 
     card = os.popen("nvidia-smi --query-gpu=name,power.limit "
@@ -163,17 +174,17 @@ def main():
     print(card)
     print(f"ORIGIN_TPU_PRECISION={mode}")
     print("step    cold_s   warm_s  device_busy_s  idle_share")
-    for name in chip_smoke.STEP_NAMES:
+    for name in names:
         s = steps[name]
         print(f"{name}  {cold[name]:7.3f}  {warm[name]:7.3f}  "
               f"{s['device_busy_s']:13.4f}  {s['idle_share']:10.3f}")
         for op, ms in s["top_ops_ms"]:
             print(f"          {ms:9.3f} ms  {op[:80]}")
-    for label, names in (("01-09", chip_smoke.STEP_NAMES[:9]),
+    for label, group in (("01-09", chip_smoke.STEP_NAMES[:9]),
                          ("01-11", chip_smoke.STEP_NAMES)):
-        busy = sum(steps[n]["device_busy_s"] for n in names)
-        total = sum(warm[n] for n in names)
-        print(f"{label}   {sum(cold[n] for n in names):7.3f}  {total:7.3f}  "
+        busy = sum(steps[n]["device_busy_s"] for n in group)
+        total = sum(warm[n] for n in group)
+        print(f"{label}   {sum(cold[n] for n in group):7.3f}  {total:7.3f}  "
               f"{busy:13.4f}  {1.0 - busy / total:10.3f}")
     print("step 11 host stages on the cold run (s, calls):")
     for label, (secs, calls) in stages.sums.items():
