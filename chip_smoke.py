@@ -137,7 +137,23 @@ j. the streamed ingest: j1 initializes sessions of the field file by the
    of the field file and a bad file (``--no-sources``) without and with
    ``--overlap-ingest``: rc 1, the float32 sweep launched once per good
    field, each good field's Cat0/Cat1 equal to phase 5's cold run bit
-   for bit, the two walls printed.
+   for bit, the two walls printed;
+k. the library surface, through the top-level names of
+   ``origin_tpu_torch``, on the products of phase 5's cold run:
+   ``Correlation_GLR_test(cube_faint, PSF, None, Dico_3FWHM,
+   device="cuda")`` must launch kernel 1 once and nothing else, and its
+   output must hold to the plain sweep on the same spatial stage computed
+   again on the card (``_hold_sweep``) and to the session's cube_correl
+   (atol 1e-5 where the session did not mask); ``glr_spectral`` on that
+   spatial stage must launch kernel 3 once and nothing else, hold to
+   ``matched_filter_plain`` and equal ``glr_spectral_mxu`` (kernel 1) bit
+   for bit, which must equal ``Correlation_GLR_test``'s output bit for
+   bit; ``Compute_threshold_purity(0.8, cube_local_max, cube_local_min,
+   segmap)`` on step 06's grid must give the session's correl threshold
+   and purity table exactly, and on its own auto grid (the float64
+   linspace of the JAX package's single form) the same counts and a
+   threshold within 1e-3; each call's wall by CUDA events is printed
+   beside the card's name and power limit.
 
 Every fresh session of a field file runs the streamed ingest by default,
 so phases 5 and e-h hold it too (phases 5 and h check that their
@@ -162,7 +178,10 @@ just after it: phase 5's cold run for the float32 sweep, phase d's field
 run for the spatial kernel and the bf16x3 sweep, phase c's entry calls for
 the spaxel-major sweeps, phase e's and phase f's resumed steps 05-11,
 phase g's CLI run and resumed export, phase h's two full-field runs and
-phase j's two surveys for the float32 sweep again.  The next-to-last line
+phase j's two surveys for the float32 sweep again, phase k's
+``Correlation_GLR_test`` for the float32 sweep and its ``glr_spectral``
+for the spaxel-major matched filter (the launches that the kernel line
+reports for it).  The next-to-last line
 of stdout is a JSON record of the kernels, the line before it the card's
 name and power limit, the last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
@@ -1162,8 +1181,8 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
         with _Recorder(masks, "line_max_images") as line_calls, \
                 _Recorder(spectra, "source_spectra") as spectra_calls, \
                 _Timer(ORIGIN, "write") as writes, \
-                _BeforeWrite(ORIGIN, ("cube_correl", "cube_std")
-                             + PINNED) as live:
+                _BeforeWrite(ORIGIN, ("cube_correl", "cube_std",
+                                      "cube_local_min") + PINNED) as live:
             walls = _run_steps(orig, STEP_KWARGS, names, peaks=peaks)
         if first:
             counts = read_counts()
@@ -1220,7 +1239,13 @@ def phase_field(field, precision="highest", names=STEP_NAMES):
                            mapO2=orig.mapO2.data.copy(),
                            maxmap=orig.maxmap.data.copy(),
                            pinned={n: live.tensors[n].cpu().numpy()
-                                   for n in ("cube_correl",) + PINNED},
+                                   for n in ("cube_correl", "cube_local_min")
+                                   + PINNED},
+                           # phase k's inputs: step 05's FSF, step 06's
+                           # segmap and purity table
+                           psf=orig.PSF, wfields=orig.wfields,
+                           segmap_purity=orig.segmap_purity.data.copy(),
+                           Pval=orig.Pval,
                            **{n: getattr(orig, n) for n in CATALOGS})
             if "step08" in names:
                 out[run]["lines"] = _field_lines_checks(orig)
@@ -2602,20 +2627,6 @@ def phase_spatial():
 
 
 # -- phase c ------------------------------------------------------------------
-def _mf_bank(prepped):
-    """The right-zero-padded (K, L) banks and centres of the JAX package's
-    ``_pack_profiles``: squares taken before the cast to float32, as the
-    Toeplitz banks take them."""
-    import numpy as np
-
-    bank = np.zeros((2, len(prepped), max(len(p) for p, _ in prepped)),
-                    np.float32)
-    for k, (p, _) in enumerate(prepped):
-        bank[0, k, :len(p)] = p
-        bank[1, k, :len(p)] = np.asarray(p) ** 2
-    return bank[0], bank[1], [c for _, c in prepped]
-
-
 def phase_spaxel_major():
     """Each spaxel-major entry called once on the field at K=3 and K=20
     (the counted path), held to its plain version and, bit for bit, to the
@@ -2625,6 +2636,7 @@ def phase_spaxel_major():
 
     from origin_tpu_torch.core.profiles import DICO_3FWHM, DICO_FWHM_2_12
     from origin_tpu_torch.ops import kernels
+    from origin_tpu_torch.ops.glr import _pack_profiles
     from origin_tpu_torch.ops.sweep import (
         launch_sweep, spectral_sweep, sweep_taps)
 
@@ -2641,7 +2653,7 @@ def phase_spaxel_major():
     for dico in (DICO_3FWHM, DICO_FWHM_2_12):
         t_num, t_den, pad_left, prepped = _banks(dico, nz, dev)
         k = t_num.shape[0]
-        bank, bank2, centers = _mf_bank(prepped)
+        bank, bank2, centers = _pack_profiles(prepped)
         mf_taps, mf_pad = kernels.mf_taps(bank, bank2, centers)
         entries = dict(
             matched_filter_spectral=(
@@ -2966,6 +2978,168 @@ def phase_ingest(field, ref, smi):
     return out
 
 
+# -- phase k ------------------------------------------------------------------
+def _event_wall(fn):
+    """``(fn(), wall in s)``, the wall between two CUDA events recorded
+    around the call, the device drained before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / 1e3
+
+
+def _same_table(a, b):
+    import numpy as np
+
+    return a.colnames == b.colnames and all(
+        np.array_equal(np.asarray(a[c]), np.asarray(b[c]), equal_nan=True)
+        for c in a.colnames)
+
+
+def phase_library(ref, smi):
+    """The library surface on the field's products of phase 5's cold run,
+    through the top-level names of ``origin_tpu_torch``:
+    ``Correlation_GLR_test`` on its cube_faint (kernel 1 once, held to the
+    plain sweep on the card's spatial stage and to the session's
+    cube_correl), ``glr_spectral`` on that spatial stage (kernel 3 once,
+    held to its plain version and bit for bit to ``glr_spectral_mxu``) and
+    ``Compute_threshold_purity`` on its local extrema and segmap (the
+    session's threshold and purity table)."""
+    import numpy as np
+    import torch
+
+    import origin_tpu_torch as otp
+    from origin_tpu_torch.core.profiles import (
+        DICO_3FWHM, default_dictionary_path, load_dictionary)
+    from origin_tpu_torch.ops import glr, kernels
+    from origin_tpu_torch.ops.convolve import fft2_shape
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out = {}
+    faint = ref["pinned"]["cube_faint"]
+    nz, ny, nx = faint.shape
+    profiles, _ = load_dictionary(default_dictionary_path(DICO_3FWHM))
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # k1: the reference's Correlation_GLR_test, on the card
+    reset_counts()
+    got, wall = _event_wall(lambda: otp.Correlation_GLR_test(
+        faint, ref["psf"], ref["wfields"], profiles, device="cuda"))
+    counts = read_counts()
+    check(counts["toeplitz_sweep"] == 1
+          and sum(counts.values()) == 1, "Correlation_GLR_test launched "
+          f"kernel 1 once and no other kernel ({counts})")
+    check(all(isinstance(a, np.ndarray) and a.flags.writeable for a in got)
+          and got[1].dtype == np.uint8, "Correlation_GLR_test returned "
+          "writable numpy arrays, uint8 indices")
+    out["correlation_glr_test"] = dict(wall_s=wall, launches=counts)
+    # its spatial stage again on the card, to hold the sweep against
+    psfs = np.asarray(ref["psf"], np.float32)[None]
+    kern_r, kern_i, factors, norm = glr.spatial_operands(
+        up(psfs), None, ny, nx, fft2_shape((ny, nx), psfs.shape[-2:]))
+    cube_fsf = glr.glr_spatial_matmul(up(faint), kern_r, kern_i, None,
+                                      factors)
+    del kern_r, kern_i, factors
+    prepped = glr.prepare_profiles(profiles)
+    t_num, t_den, pad_left, _ = glr.pack_profiles_toeplitz(
+        prepped, block=min(128, nz))
+    t_num, t_den = up(t_num), up(t_den)
+    got = tuple(up(a) for a in got)
+    plain = glr.toeplitz_sweep(cube_fsf, norm, t_num, t_den, pad_left, nz)
+    err, mism, gap = _hold_sweep("Correlation_GLR_test", got, plain,
+                                 cube_fsf, norm, t_num, t_den, pad_left)
+    del plain
+    session = up(ref["pinned"]["cube_correl"])
+    kept = session != 0  # the session zeroes the masked voxels
+    diff = float((got[0] - session)[kept].abs().max())
+    check(diff <= SWEEP_ATOL, "Correlation_GLR_test on the session's "
+          f"cube_faint gives its step-05 cube_correl (max abs err {diff:.3g}"
+          f" on {int(kept.sum())} voxels)")
+    del session, kept
+    out["correlation_glr_test"].update(max_abs_err=err, mismatches=mism,
+                                       tie_gap=gap, vs_session=diff)
+
+    # k2: glr_spectral on that spatial stage: kernel 3 on its library path
+    bank, bank2, centers = glr._pack_profiles(prepped)
+    reset_counts()
+    mf, wall_mf = _event_wall(lambda: glr.glr_spectral(
+        cube_fsf, norm, bank, bank2, centers, nz))
+    counts = read_counts()
+    check(counts["matched_filter_spectral"] == 1
+          and sum(counts.values()) == 1, "glr_spectral launched kernel 3 "
+          f"once and no other kernel ({counts})")
+    check(mf[1].dtype == torch.uint8 and mf[0].shape == faint.shape,
+          "glr_spectral: (Nz, Ny, Nx) outputs, uint8 indices")
+    s = ny * nx
+    cr, mr, pr = kernels.matched_filter_plain(
+        cube_fsf.reshape(nz, s).T.contiguous(),
+        norm.reshape(nz, s).T.contiguous(), torch.from_numpy(bank),
+        torch.from_numpy(bank2), centers)
+
+    def back(a):
+        return a.T.reshape(nz, ny, nx)
+
+    err3, mism3, gap3 = _hold_sweep(
+        "glr_spectral", mf, (back(cr), back(pr).to(mf[1].dtype), back(mr)),
+        cube_fsf, norm, t_num, t_den, pad_left)
+    del cr, mr, pr
+    mxu = glr.glr_spectral_mxu(cube_fsf, norm, t_num, t_den, pad_left, nz)
+    check(all(torch.equal(a, b) for a, b in zip(mf, mxu)),
+          "glr_spectral (kernel 3) equals glr_spectral_mxu (kernel 1) on "
+          "the same spatial stage bit for bit")
+    check(all(torch.equal(a, b) for a, b in zip(mxu, got)),
+          "glr_spectral_mxu on the card's spatial stage equals "
+          "Correlation_GLR_test's output bit for bit")
+    out["glr_spectral"] = dict(wall_s=wall_mf, launches=counts,
+                               max_abs_err=err3, mismatches=mism3,
+                               tie_gap=gap3)
+    del mf, mxu, got, cube_fsf, norm
+
+    # k3: Compute_threshold_purity on the session's step-06 inputs
+    purity = STEP_KWARGS["step06"]["purity"]
+    clmax = ref["pinned"]["cube_local_max"]
+    clmin = ref["pinned"]["cube_local_min"]
+    seg, pval = ref["segmap_purity"], ref["Pval"]
+    grid = np.asarray(pval["Tval_r"])
+    (thr, tab), wall_p = _event_wall(lambda: otp.Compute_threshold_purity(
+        purity, clmax, clmin, seg, threshlist=grid, device="cuda"))
+    check(thr == ref["threshold"] and _same_table(tab, pval),
+          f"Compute_threshold_purity on step 06's grid: threshold {thr!r} "
+          "and the purity table equal the session's")
+    # the auto grid: the float64 linspace between the statistics read back,
+    # as the JAX package's single form builds it (step 06 builds the
+    # float32 grid of the pair form)
+    (thr_a, tab_a), wall_a = _event_wall(lambda: otp.Compute_threshold_purity(
+        purity, clmax, clmin, seg, device="cuda"))
+    grid_a = np.asarray(tab_a["Tval_r"])
+    check(abs(thr_a - ref["threshold"]) <= MODE_THRESH_TOL
+          and np.array_equal(np.asarray(tab_a["Det_M"]),
+                             np.asarray(pval["Det_M"]))
+          and np.array_equal(np.asarray(tab_a["Det_m"]),
+                             np.asarray(pval["Det_m"])),
+          f"Compute_threshold_purity on its auto grid: threshold {thr_a!r} "
+          f"within {MODE_THRESH_TOL} of the session's {ref['threshold']!r}, "
+          "the counts equal (grids apart by "
+          f"{float(np.abs(grid_a - grid).max()):.3g})")
+    out["purity"] = dict(wall_s=wall_p, threshold=thr, wall_auto_s=wall_a,
+                         threshold_auto=thr_a,
+                         grid_gap=float(np.abs(grid_a - grid).max()))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  walls (CUDA events, {smi}): Correlation_GLR_test {wall:.3f} s, "
+        f"glr_spectral {wall_mf:.3f} s, Compute_threshold_purity {wall_p:.3f}"
+        f" s (auto grid {wall_a:.3f} s); phase k {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_line(res):
     sweep, sweep3 = res["sweep"][3], res["sweep_bf16x3"][3]
     spatial = res["spatial"]["field"]
@@ -2973,6 +3147,8 @@ def _kernel_line(res):
         toeplitz_sweep=dict(
             launches=res["field"]["cold"]["launches"]["toeplitz_sweep"],
             mesh_launches=res["mesh"]["i1"]["launches"]["toeplitz_sweep"],
+            library_launches=res["library"]["correlation_glr_test"][
+                "launches"]["toeplitz_sweep"],
             library_ms=None, **sweep),
         toeplitz_sweep_bf16x3=dict(
             launches=res["bf16x3"]["launches"]["toeplitz_sweep_bf16x3"],
@@ -2983,9 +3159,14 @@ def _kernel_line(res):
             launches=res["bf16x3"]["launches"]["spatial_fsf"],
             library_ms=spatial["library_ms"], precision="bf16x3",
             **spatial["bf16x3"]),
-        **{name: dict(library_ms=None, **res["spaxel_major"][name][3])
-           for name in ("matched_filter_spectral",
-                        "banded_matmul_spectral")})
+        matched_filter_spectral=dict(
+            library_ms=None, **dict(
+                res["spaxel_major"]["matched_filter_spectral"][3],
+                launches=res["library"]["glr_spectral"]["launches"][
+                    "matched_filter_spectral"])),
+        banded_matmul_spectral=dict(
+            library_ms=None, **res["spaxel_major"]["banded_matmul_spectral"][
+                3]))
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     out = []
@@ -2993,7 +3174,7 @@ def _kernel_line(res):
         source, replaces = KERNEL_SOURCES[name]
         out.append(dict(name=name, route="cuda", source=source,
                         replaces=replaces, **{k: row[k] for k in keys}))
-        for key in ("precision", "mesh_launches"):
+        for key in ("precision", "mesh_launches", "library_launches"):
             if key in row:
                 out[-1][key] = row[key]
     return {"kernels": out}
@@ -3057,6 +3238,9 @@ def main():
         "eager (j1), the CLI survey with --overlap-ingest (j2)")
     res["ingest"] = phase_ingest(field, reference,
                                  res["versions"]["nvidia_smi"])
+    log("[k] the library surface on cuda: Correlation_GLR_test, "
+        "glr_spectral and Compute_threshold_purity on phase 5's products")
+    res["library"] = phase_library(reference, res["versions"]["nvidia_smi"])
     jaxed = sorted(m for m in sys.modules if m.split(".")[0] in
                    ("jax", "origin_tpu"))
     check(not jaxed, "nothing of JAX or of the JAX package was imported "

@@ -12,6 +12,8 @@ from .profiles import (
     default_dictionary_path,
     gaussian_profile,
     load_dictionary,
+    make_profiles,
+    write_dictionary,
 )
 from .table import Table, join, vstack
 
@@ -20,5 +22,5 @@ __all__ = [
     "FieldsMap", "MoffatFSF", "moffat_image", "read_fsf_from_header",
     "Table", "join", "vstack",
     "DICO_3FWHM", "DICO_FWHM_2_12", "default_dictionary_path",
-    "gaussian_profile", "load_dictionary",
+    "gaussian_profile", "load_dictionary", "make_profiles", "write_dictionary",
 ]

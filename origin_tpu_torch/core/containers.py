@@ -206,6 +206,12 @@ class _Base:
             m |= self.mask
         return m
 
+    def get_mask(self):
+        """The boolean mask, all False when the container has none."""
+        if self.mask is None:
+            return np.zeros(self.shape, dtype=bool)
+        return self.mask
+
     def _stamp_nonfinite_mask(self):
         """Record that ``self.mask`` IS the data's non-finite pattern
         (or None with all-finite data) — see :meth:`masked_invalid`."""
@@ -260,6 +266,13 @@ class _Base:
         return WaveCoord(crpix=self.wave.crpix, crval=self.wave.crval,
                          cdelt=self.wave.cdelt, ctype=self.wave.ctype,
                          shape=self.wave.shape)
+
+    def abs(self):
+        """A container of the same dimensionality holding ``|data|``, with
+        this one's variance, mask and coordinates (shared, not copied)."""
+        return self._dense_cls()(
+            data=np.abs(self.data), var=self.var, mask=self.mask,
+            wcs=self._copy_wcs(), wave=self._copy_wave(), copy=False)
 
     # -- reductions --------------------------------------------------------------
     def _reduce(self, func, axis):

@@ -27,7 +27,8 @@ from collections import OrderedDict
 
 import numpy as np
 
-__all__ = ["Header", "HDU", "read", "scan", "write", "getdata", "getheader"]
+__all__ = ["Header", "HDU", "read", "scan", "write", "writeto", "getdata",
+           "getheader"]
 
 BLOCK = 2880
 CARDLEN = 80
@@ -752,3 +753,8 @@ def getdata(filename, ext=None):
                 return h.data
         raise KeyError(f"extension {ext!r} not found in {filename}")
     return hdus[ext].data
+
+
+def writeto(filename, data, header=None, overwrite=True):
+    """Write one array as the primary HDU of a new FITS file."""
+    write(filename, [HDU(data=data, header=header)], overwrite=overwrite)

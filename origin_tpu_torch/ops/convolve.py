@@ -1,9 +1,12 @@
-"""Padded FFT shapes for the spatial FSF stage (copy of
-:mod:`origin_tpu.ops.convolve`'s host helpers)."""
+"""FFT convolutions of the spatial FSF stage (torch port of
+:mod:`origin_tpu.ops.convolve`): the padded FFT shapes, and the batched
+'same' 2-D convolution on ``torch.fft`` (cuFFT on a GPU)."""
 
 from __future__ import annotations
 
-__all__ = ["next_smooth", "fft2_shape"]
+import torch
+
+__all__ = ["next_smooth", "fft2_shape", "fftconvolve2d_same"]
 
 
 def next_smooth(n, factors=(2, 3, 5)):
@@ -25,3 +28,19 @@ def fft2_shape(shape_img, shape_kern):
         next_smooth(int(a) + int(b) - 1)
         for a, b in zip(shape_img, shape_kern)
     )
+
+
+def fftconvolve2d_same(cube, kern, fshape):
+    """'same' linear convolution of each channel with its own 2-D kernel.
+
+    ``cube`` is (..., Ny, Nx), ``kern`` (..., Ph, Pw) broadcastable against
+    the cube's leading axes, ``fshape`` the padded FFT shape, at least
+    (Ny + Ph - 1, Nx + Pw - 1).  Runs on the tensors' device.
+    """
+    ny, nx = cube.shape[-2:]
+    ph, pw = kern.shape[-2:]
+    fshape = tuple(int(f) for f in fshape)
+    full = torch.fft.irfft2(torch.fft.rfft2(cube, s=fshape)
+                            * torch.fft.rfft2(kern, s=fshape), s=fshape)
+    y0, x0 = (ph - 1) // 2, (pw - 1) // 2
+    return full[..., y0 : y0 + ny, x0 : x0 + nx]

@@ -18,6 +18,14 @@ the plain spectral sweep (torch port of :mod:`origin_tpu.ops.glr`).
 Both plain versions take ``precision="highest"`` (float32 products) or
 ``"bf16x3"`` (the 3-pass bfloat16 scheme of :mod:`.prec`, split where the
 TPU kernels split).
+
+The library entries of the JAX module run on their tensors' device:
+:func:`glr_spatial` and :func:`glr_spatial_pre` (``torch.fft``),
+:func:`glr_spectral` (the spaxel-major sweep kernel on a GPU,
+:func:`origin_tpu_torch.ops.kernels.matched_filter_spectral`) and
+:func:`glr_spectral_mxu` (the sweep kernel on a GPU).
+:func:`correlation_glr_test` is the host orchestrator, the reference's
+``Correlation_GLR_test``, on the device it is given.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device, set_precision
+from .convolve import fft2_shape, fftconvolve2d_same
 from .prec import split_and_dot, sqrt_rn
 
 __all__ = [
@@ -32,9 +42,16 @@ __all__ = [
     "pack_profiles_toeplitz",
     "dft_spatial_factors",
     "precompute_spatial",
+    "spatial_operands",
+    "glr_spatial",
+    "glr_spatial_pre",
     "glr_spatial_matmul",
     "glr_spatial_chunked",
+    "glr_spectral",
+    "glr_spectral_mxu",
+    "index_dtype",
     "toeplitz_sweep",
+    "correlation_glr_test",
 ]
 
 
@@ -69,6 +86,28 @@ def prepare_profiles(profiles, pcut=1e-8, pmeansub=True):
             prof = prof - prof.mean()
         out.append((prof, (len(prof) - 1) // 2))
     return out
+
+
+def _pack_profiles(prepped, length=None):
+    """Stack trimmed profiles into a right-zero-padded (K, L) bank.
+
+    Returns (prof_bank, prof2_bank, centers): profile j of length l_j sits
+    in row j, padded with zeros on the right, and its square in
+    ``prof2_bank`` (taken before the cast to float32, as the Toeplitz banks
+    take it); ``centers[j] = (l_j - 1) // 2`` is the offset of the centred
+    'same' correlation.
+    """
+    k = len(prepped)
+    if length is None:
+        length = max(len(p) for p, _ in prepped)
+    buf = np.zeros((k, length), dtype=np.float32)
+    buf2 = np.zeros((k, length), dtype=np.float32)
+    centers = []
+    for i, (prof, c) in enumerate(prepped):
+        buf[i, : len(prof)] = prof
+        buf2[i, : len(prof)] = np.asarray(prof) ** 2
+        centers.append(int(c))
+    return buf, buf2, tuple(centers)
 
 
 def pack_profiles_toeplitz(prepped, block=128):
@@ -139,6 +178,30 @@ def dft_spatial_factors(ny, nx, fshape2, psf_shape, ny_out=None, y_extra=0):
     )
 
 
+def _fsf_kernel(psf):
+    """The flipped zero-mean FSF of each channel of a (Nz, P, P) cube."""
+    kern = torch.flip(psf, dims=(1, 2))
+    return kern - torch.mean(kern, dim=(1, 2), keepdim=True)
+
+
+def _norm_term(kern, wmap, ny, nx, fshape2):
+    """One field's norm cube: the ones (or the weight map ``wmap``)
+    correlated with each channel's FSF^2, from one FFT of that image
+    broadcast over z."""
+    base = (torch.ones((1, ny, nx), dtype=kern.dtype, device=kern.device)
+            if wmap is None else wmap[None])
+    bf = torch.fft.rfft2(base, s=fshape2)
+    k2f = torch.fft.rfft2(kern * kern, s=fshape2)
+    full = torch.fft.irfft2(bf * k2f, s=fshape2)
+    ph, pw = kern.shape[-2:]
+    y0, x0 = (ph - 1) // 2, (pw - 1) // 2
+    return full[:, y0 : y0 + ny, x0 : x0 + nx]
+
+
+def _field_data(cube, wmaps, nf):
+    return cube if wmaps is None else cube * wmaps[nf][None]
+
+
 def precompute_spatial(psfs, wmaps, ny, nx, fshape2):
     """Data-independent part of the spatial stage, computed once per dataset.
 
@@ -146,25 +209,65 @@ def precompute_spatial(psfs, wmaps, ny, nx, fshape2):
     (kern_hats, norm_fsf): the (F, Nz, fy, fx//2+1) complex bank of flipped
     zero-mean FSF spectra and the summed (Nz, Ny, Nx) norm cube.
     """
-    nfields = psfs.shape[0]
     kern_hats = []
     norm_fsf = None
-    for nf in range(nfields):
-        kern = torch.flip(psfs[nf], dims=(1, 2))
-        kern = kern - torch.mean(kern, dim=(1, 2), keepdim=True)
+    for nf in range(psfs.shape[0]):
+        kern = _fsf_kernel(psfs[nf])
         kern_hats.append(torch.fft.rfft2(kern, s=fshape2))
-        base = (
-            torch.ones((1, ny, nx), dtype=psfs.dtype, device=psfs.device)
-            if wmaps is None else wmaps[nf][None]
-        )
-        bf = torch.fft.rfft2(base, s=fshape2)
-        k2f = torch.fft.rfft2(kern * kern, s=fshape2)
-        full = torch.fft.irfft2(bf * k2f, s=fshape2)
-        ph, pw = kern.shape[-2:]
-        y0, x0 = (ph - 1) // 2, (pw - 1) // 2
-        n = full[:, y0 : y0 + ny, x0 : x0 + nx]
+        n = _norm_term(kern, None if wmaps is None else wmaps[nf], ny, nx,
+                       fshape2)
         norm_fsf = n if norm_fsf is None else norm_fsf + n
     return torch.stack(kern_hats), norm_fsf.contiguous()
+
+
+def glr_spatial(cube, psfs, wmaps, fshape2):
+    """Spatial FSF stage on FFTs: returns (cube_fsf, norm_fsf), each
+    (Nz, Ny, Nx).
+
+    ``psfs`` is (F, Nz, P, P), ``wmaps`` (F, Ny, Nx) or None for a single
+    field: each (weighted) channel is correlated with its flipped zero-mean
+    FSF (:func:`fftconvolve2d_same`), and the norm is the (weighted) ones
+    correlated with FSF^2; the fields' terms are summed.
+    """
+    ny, nx = cube.shape[-2:]
+    cube_fsf = norm_fsf = None
+    for nf in range(psfs.shape[0]):
+        kern = _fsf_kernel(psfs[nf])
+        c = fftconvolve2d_same(_field_data(cube, wmaps, nf), kern, fshape2)
+        n = _norm_term(kern, None if wmaps is None else wmaps[nf], ny, nx,
+                       fshape2)
+        cube_fsf = c if cube_fsf is None else cube_fsf + c
+        norm_fsf = n if norm_fsf is None else norm_fsf + n
+    return cube_fsf.contiguous(), norm_fsf.contiguous()
+
+
+def glr_spatial_pre(cube, kern_hats, wmaps, psf_shape, fshape2):
+    """Spatial stage from the FSF spectra of :func:`precompute_spatial`:
+    two cube-sized FFT passes a field.  Returns cube_fsf (Nz, Ny, Nx); the
+    norm cube comes from :func:`precompute_spatial`."""
+    ny, nx = cube.shape[-2:]
+    ph, pw = psf_shape
+    y0, x0 = (ph - 1) // 2, (pw - 1) // 2
+    cube_fsf = None
+    for nf in range(kern_hats.shape[0]):
+        cf = torch.fft.rfft2(_field_data(cube, wmaps, nf), s=fshape2)
+        full = torch.fft.irfft2(cf * kern_hats[nf], s=fshape2)
+        c = full[:, y0 : y0 + ny, x0 : x0 + nx]
+        cube_fsf = c if cube_fsf is None else cube_fsf + c
+    return cube_fsf.contiguous()
+
+
+def spatial_operands(psfs, wmaps, ny, nx, fshape2):
+    """The matmul spatial stage's operands on ``psfs``' device: the real
+    and imaginary parts of the FSF spectra (:func:`precompute_spatial`),
+    the DFT factors (:func:`dft_spatial_factors`) and the norm cube.
+    Returns (kern_r, kern_i, factors, norm_fsf)."""
+    kern_hats, norm_fsf = precompute_spatial(psfs, wmaps, ny, nx, fshape2)
+    factors = {k: torch.from_numpy(v).to(psfs.device)
+               for k, v in dft_spatial_factors(
+                   ny, nx, fshape2, psfs.shape[-2:]).items()}
+    return (kern_hats.real.contiguous(), kern_hats.imag.contiguous(),
+            factors, norm_fsf)
 
 
 def glr_spatial_matmul(cube, kern_r, kern_i, wmaps, factors,
@@ -190,7 +293,7 @@ def glr_spatial_matmul(cube, kern_r, kern_i, wmaps, factors,
     cxr, cxi = sp(factors["cxr"]), sp(factors["cxi"])
     cube_fsf = None
     for nf in range(kern_r.shape[0]):
-        data = sp(cube if wmaps is None else cube * wmaps[nf][None])
+        data = sp(_field_data(cube, wmaps, nf))
         zr = sp(d3(data, axr))  # (z, ny, FXr)
         zi = sp(d3(data, axi))
         del data
@@ -246,6 +349,11 @@ def glr_spatial_chunked(cube, psfs, wmaps, fshape2, zchunk=512):
     return cube_fsf, norm_fsf
 
 
+def index_dtype(nprof):
+    """dtype of the sweeps' profile indices: uint8 up to 255 profiles, int32 beyond."""
+    return torch.uint8 if nprof <= 255 else torch.int32
+
+
 def toeplitz_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
                    max_transient_bytes=2 << 30, precision="highest"):
     """Plain spectral sweep: unfold + matmul against the Toeplitz banks.
@@ -263,7 +371,7 @@ def toeplitz_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
     """
     sp, d3 = split_and_dot(precision)
     nprof, window, block = t_num.shape
-    pdtype = torch.uint8 if nprof <= 255 else torch.int32
+    pdtype = index_dtype(nprof)
     nb = -(-nz // block)
     ny, nx = cube_fsf.shape[1:]
     s = ny * nx
@@ -309,3 +417,111 @@ def toeplitz_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
 
     shape = (nz, ny, nx)
     return correl.reshape(shape), profile.reshape(shape), cmin.reshape(shape)
+
+
+def glr_spectral(cube_fsf, norm_fsf, prof_bank, prof2_bank, centers, nz):
+    """Spectral matched-filter sweep over a (K, L) profile bank, with the
+    running max / argmax / min.
+
+    ``cube_fsf`` and ``norm_fsf`` are (Nz, Ny, Nx) float32; ``prof_bank``,
+    ``prof2_bank`` and ``centers`` come from :func:`_pack_profiles`.  The
+    cubes go to the spaxel-major (S, Nz) layout and back, as in the JAX
+    function, around
+    :func:`origin_tpu_torch.ops.kernels.matched_filter_spectral`: on a
+    CUDA tensor its kernel (``csrc/toeplitz_sweep.cu``, spaxel-major),
+    which launches or raises; on a CPU tensor its plain version.  Returns
+    (correl, profile_idx, correl_min), each (Nz, Ny, Nx); profile indices
+    are uint8 up to 255 profiles and int32 beyond.
+
+    The kernel sums each profile's nonzero span and its plain version
+    skips the zero taps; the JAX function multiplies every tap of the
+    bank's row, so a NaN or infinite sample facing a profile's zero
+    padding makes its statistic NaN where theirs stays finite
+    (:func:`~origin_tpu_torch.ops.kernels.matched_filter_spectral`).
+    """
+    # kernels imports this module for the plain sweep
+    from .kernels import matched_filter_spectral
+
+    ny, nx = cube_fsf.shape[1:]
+    s = ny * nx
+    x = cube_fsf.reshape(nz, s).T.contiguous()
+    n = norm_fsf.reshape(nz, s).T.contiguous()
+    correl, cmin, pidx = matched_filter_spectral(x, n, prof_bank, prof2_bank,
+                                                 centers)
+    del x, n
+
+    def back(a):
+        return a.T.reshape(nz, ny, nx).contiguous()
+
+    return (back(correl), back(pidx.to(index_dtype(len(centers)))),
+            back(cmin))
+
+
+def glr_spectral_mxu(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
+                     precision="highest"):
+    """Spectral matched-filter sweep over the banded-Toeplitz banks of
+    :func:`pack_profiles_toeplitz`.
+
+    :func:`origin_tpu_torch.ops.sweep.spectral_sweep`: on a CUDA tensor
+    the sweep kernel of ``precision``, which launches or raises; on a CPU
+    tensor the plain :func:`toeplitz_sweep`.  Inputs are (Nz, Ny, Nx);
+    returns (correl, profile_idx, correl_min), each (Nz, Ny, Nx); profile
+    indices are uint8 up to 255 profiles and int32 beyond.
+    """
+    # sweep imports this module for the plain sweep
+    from .sweep import spectral_sweep
+
+    dev = cube_fsf.device
+    t_num, t_den = (torch.as_tensor(t, dtype=torch.float32, device=dev)
+                    for t in (t_num, t_den))
+    return spectral_sweep(cube_fsf.contiguous(), norm_fsf.contiguous(),
+                          t_num.contiguous(), t_den.contiguous(), pad_left,
+                          nz, precision=precision)
+
+
+def correlation_glr_test(cube, fsf, weights, profiles, pcut=1e-8,
+                         pmeansub=True, device="cuda"):
+    """Full GLR test (the reference's ``Correlation_GLR_test``): the host
+    orchestrator around the two device stages.
+
+    ``cube`` is the host (Nz, Ny, Nx) cube, ``fsf`` one (Nz, P, P) PSF
+    cube or, with ``weights`` (the per-field weight maps), a list of them
+    (a mosaic); ``profiles`` the spectral dictionary.  The spatial stage
+    is the DFT-by-matmul chain (:func:`glr_spatial_matmul`, cuBLAS on a
+    GPU), the spectral stage :func:`glr_spectral_mxu` (one launch of the
+    sweep kernel on a GPU), both at ``"highest"`` whatever
+    ``ORIGIN_TPU_PRECISION`` says, as the JAX function runs them.  They
+    run on ``device``: ``"cuda"`` raises without a GPU, ``"cpu"`` runs the
+    plain versions when the caller asks for it.
+
+    Returns writable numpy arrays (correl, profile, correl_min).
+    """
+    dev = resolve_device(device)
+    set_precision()
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cube = np.asarray(cube, dtype=np.float32)
+    nz, ny, nx = cube.shape
+    if weights is None:
+        psfs = np.asarray(fsf, dtype=np.float32)
+        if psfs.ndim == 3:
+            psfs = psfs[None]
+        wmaps = None
+    else:
+        psfs = np.stack([np.asarray(p, dtype=np.float32) for p in fsf])
+        wmaps = up(np.stack([np.asarray(w, dtype=np.float32)
+                             for w in weights]))
+
+    kern_r, kern_i, factors, norm_fsf = spatial_operands(
+        up(psfs), wmaps, ny, nx, fft2_shape((ny, nx), psfs.shape[-2:]))
+    cube_fsf = glr_spatial_matmul(up(cube), kern_r, kern_i, wmaps, factors)
+    del kern_r, kern_i, factors
+
+    prepped = prepare_profiles(profiles, pcut=pcut, pmeansub=pmeansub)
+    t_num, t_den, pad_left, _ = pack_profiles_toeplitz(prepped,
+                                                       block=min(128, nz))
+    out = glr_spectral_mxu(cube_fsf, norm_fsf, up(t_num), up(t_den),
+                           pad_left, nz)
+    return tuple(t.cpu().numpy() for t in out)

@@ -15,7 +15,10 @@ indices int32, in the order of the JAX entries.  On a CUDA tensor each
 launches the spaxel-major form of the sweep kernel
 (``csrc/toeplitz_sweep.cu``) and counts the launch in its ``launches``;
 on a CPU tensor each runs its plain version.  Neither is on the step-05
-path: the JAX package keeps both as reference kernels.
+path: the JAX package keeps both as reference kernels.  The library's
+:func:`origin_tpu_torch.ops.glr.glr_spectral` runs
+:func:`matched_filter_spectral`, as the JAX ``glr_spectral`` is the
+one-pass form that ``_mf_kernel`` fuses.
 """
 
 from __future__ import annotations
@@ -151,7 +154,8 @@ def matched_filter_spectral(x, n, prof_bank, prof2_bank, centers):
     dictionaries'); with one, a NaN or infinite sample facing it makes the
     kernel's statistic NaN where theirs stays finite.  The engine
     zero-fills non-finite voxels before step 05, and neither entry is on
-    its path.
+    its path; a caller of ``glr.glr_spectral`` may not zero-fill
+    (``tests/test_torch_api.py`` pins the kernel's footprint there).
     """
     dev = x.device
     s, nz = _spaxel_inputs(x, n)

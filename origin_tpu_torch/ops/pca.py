@@ -16,12 +16,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .stats import compute_thresh_gaussfit
 
 __all__ = [
     "rank1_left_vector",
     "rank1_left_vectors",
     "greedy_pca",
+    "greedy_pca_areas",
+    "greedy_pca_by_area",
     "compute_pca_threshold",
 ]
 
@@ -131,11 +134,81 @@ def greedy_pca(cube, valid, test0, thres, noise_population=50.0, itermax=100,
     return faint, mapo2, nstop
 
 
-def compute_pca_threshold(cube_area, pfa):
+def greedy_pca_areas(flat, areamap, thresholds, testO2,
+                     noise_population=50.0, itermax=100,
+                     record_factors=False):
+    """Greedy PCA of every area, in place on ``flat``.
+
+    ``flat`` is the (Nz, Ny*Nx) tensor of the spectra, ``areamap`` a host
+    (Ny, Nx) map of labels 1..N (0 outside every area), ``thresholds`` and
+    ``testO2`` the per-area O2 thresholds and test vectors (one value per
+    area spaxel, in the row-major order of ``areamap == a``).  Each area's
+    columns are gathered on ``flat``'s device, cleaned by
+    :func:`greedy_pca` and scattered back.  Returns ``(mapO2, nstop,
+    factors)``: the host int32 (Ny, Nx) iteration counts, the number of
+    areas that hit ``itermax``, and, with ``record_factors``, per area its
+    flat spatial indices and the rank-1 factors ``(U, C)`` that the loop
+    removed, trimmed to the used columns (else an empty list).
+    """
+    dev = flat.device
+    areamap = np.asarray(areamap)
+    mapO2 = np.zeros(areamap.shape, dtype=np.int32)
+    nstop = 0
+    factors = []
+    for area in range(1, int(areamap.max()) + 1):
+        (idx,) = np.nonzero((areamap == area).ravel())
+        if idx.size == 0:
+            continue
+        didx = torch.from_numpy(idx.astype(np.int64)).to(dev)
+        out = greedy_pca(
+            flat[:, didx], torch.ones(idx.size, dtype=torch.bool, device=dev),
+            torch.from_numpy(np.asarray(testO2[area - 1], np.float32)).to(dev),
+            float(thresholds[area - 1]),
+            noise_population=float(noise_population), itermax=int(itermax),
+            record_factors=record_factors,
+        )
+        flat[:, didx] = out[0]
+        mapO2.ravel()[idx] = out[1].cpu().numpy()
+        nstop += int(out[2])
+        if record_factors:
+            u_mat, c_mat = (t.cpu().numpy() for t in out[3:])
+            used = np.flatnonzero((u_mat != 0).any(axis=0))
+            if used.size:
+                factors.append((idx, u_mat[:, used],
+                                np.ascontiguousarray(c_mat[used])))
+    return mapO2, nstop, factors
+
+
+def greedy_pca_by_area(cube_std, areamap, thresholds, testO2,
+                       noise_population=50.0, itermax=100, device="cuda"):
+    """Run the greedy PCA independently on every area (the reference's
+    ``Compute_GreedyPCA_area``).
+
+    ``cube_std`` is the host (Nz, Ny, Nx) cube, the other parameters as
+    :func:`greedy_pca_areas`.  The areas run on ``device`` (``"cuda"``
+    raises without a GPU; ``"cpu"`` when the caller asks for it).  Returns
+    host ``(cube_faint, mapO2, nstop)``.
+    """
+    dev = resolve_device(device)
+    cube_std = np.asarray(cube_std, dtype=np.float32)
+    flat = torch.tensor(cube_std.reshape(cube_std.shape[0], -1), device=dev)
+    mapO2, nstop, _ = greedy_pca_areas(
+        flat, areamap, thresholds, testO2,
+        noise_population=noise_population, itermax=itermax)
+    return flat.reshape(cube_std.shape).cpu().numpy(), mapO2, nstop
+
+
+def compute_pca_threshold(cube_area, pfa, device="cuda"):
     """O2 test + Gaussian-fit threshold for one area (host, numpy).
 
+    Host work in both packages: the float64 mean over z of the squares of
+    the (Nz, Np) ``cube_area``, in numpy's summation order, then the
+    histogram fit.  ``device`` follows the rule of every entry that takes
+    host arrays: ``"cuda"`` (the default) raises without a GPU, so a
+    script written for the card fails here as its other calls do.
     Returns (test, hist, bins, thres, mea, std).
     """
+    resolve_device(device)
     cube_area = np.asarray(cube_area, dtype=np.float64)
     test = np.mean(cube_area ** 2, axis=0)
     hist, bins, thres, mea, std = compute_thresh_gaussfit(test, pfa)

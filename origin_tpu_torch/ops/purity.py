@@ -18,9 +18,11 @@ import numpy as np
 import torch
 
 from ..core.table import Table
+from ..device import resolve_device
 
 __all__ = [
     "counts_above_thresholds",
+    "compute_threshold_purity",
     "compute_threshold_purity_pair",
 ]
 
@@ -56,10 +58,18 @@ def _median(x):
     return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
+def _purity_stats(cmax, cmin):
+    """The auto grid's statistics of one cube pair, float32 scalars on its
+    device: the max of the local minima, the max of the local maxima and
+    the median over spaxels of the local maxima's max along z."""
+    return cmin.max(), cmax.max(), _median(cmax.amax(dim=0))
+
+
 def _scan_auto(cmax, cmin):
     """Auto threshold grid + both count scans for one cube pair."""
-    tmax = torch.minimum(cmin.max(), cmax.max())
-    tmin = _median(cmax.amax(dim=0)) * 1.1
+    maxmin, maxmax, med = _purity_stats(cmax, cmin)
+    tmax = torch.minimum(maxmin, maxmax)
+    tmin = med * 1.1
     # tmin + (tmax - tmin) * (i / 49), as the JAX package's compiled
     # program evaluates it: XLA folds the division into a float32
     # reciprocal, reassociates, and contracts i * step + tmin into an FMA
@@ -130,6 +140,60 @@ def _purity_table(purity, threshlist, n1, n0, l0, l1):
 
 def _host(vectors):
     return [v.cpu().numpy() for v in vectors]
+
+
+def compute_threshold_purity(
+    purity, cube_local_max, cube_local_min, segmap=None, threshlist=None,
+    device="cuda",
+):
+    """Estimate the detection threshold achieving a target purity for one
+    cube pair (the reference's ``Compute_threshold_purity``).
+
+    The false-detection rate is self-calibrated from the data: local minima
+    of the negated cube behave like noise-only detections, so
+
+        purity(t) = 1 - n_min(t) * (L1/L0) / n_max(t)
+
+    with L0 the number of calibration spaxels (the background, ``segmap ==
+    0``, if a segmap is given) and L1 the total.  Tensors stay on their
+    device; numpy cubes go to ``device`` (``"cuda"`` raises without a
+    GPU).  As in the JAX package, the auto grid is the float64
+    ``linspace`` between the three statistics read back to the host, not
+    the float32 grid of :func:`compute_threshold_purity_pair`.
+
+    Returns (threshold, Table[Tval_r, Pval_r, Det_m, Det_M]).
+    """
+    def on_device(cube):
+        if torch.is_tensor(cube):
+            return cube
+        return torch.as_tensor(np.asarray(cube, np.float32),
+                               device=resolve_device(device))
+
+    cube_local_max = on_device(cube_local_max)
+    cube_local_min = on_device(cube_local_min)
+    dev = cube_local_min.device
+    l1 = float(np.prod(cube_local_min.shape[1:]))
+    if segmap is not None:
+        segmask = np.asarray(segmap) == 0
+        # the float32 product: NaN x 0 stays NaN
+        cube_local_min = cube_local_min * torch.as_tensor(
+            segmask, dtype=torch.float32, device=dev)
+        l0 = float(np.count_nonzero(segmask))
+        logger.info("using only background pixels (%.1f%%)", l0 / l1 * 100)
+    else:
+        l0 = l1
+
+    if threshlist is None:
+        maxmin, maxmax, med = (float(v) for v in _purity_stats(
+            cube_local_max, cube_local_min))
+        threshlist = np.linspace(med * 1.1, min(maxmin, maxmax), NTHRESH)
+    else:
+        threshlist = np.sort(np.asarray(threshlist, dtype=float))
+
+    th = torch.as_tensor(threshlist, dtype=torch.float32, device=dev)
+    n1, n0 = _host((_counts(cube_local_max, th),
+                    _counts(cube_local_min, th)))
+    return _purity_table(purity, threshlist, n1, n0, l0, l1)
 
 
 def compute_threshold_purity_pair(

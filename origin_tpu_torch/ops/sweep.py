@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from .glr import toeplitz_sweep
+from .glr import index_dtype, toeplitz_sweep
 from .prec import check_precision, split_bf16
 
 __all__ = ["spectral_sweep", "sweep_taps", "taps_extent", "toeplitz_blocks",
@@ -228,7 +228,7 @@ def spectral_sweep(cube_fsf, norm_fsf, t_num, t_den, pad_left, nz,
     check_tensor("t_num", t_num, torch.float32, (nprof, window, block), dev)
     check_tensor("t_den", t_den, torch.float32, (nprof, window, block), dev)
 
-    pdtype = torch.uint8 if nprof <= 255 else torch.int32
+    pdtype = index_dtype(nprof)
     correl = torch.empty(shape, dtype=torch.float32, device=dev)
     profile = torch.empty(shape, dtype=pdtype, device=dev)
     cmin = torch.empty(shape, dtype=torch.float32, device=dev)

@@ -49,16 +49,15 @@ from ..device import resolve_device, set_precision
 from ..ops.convolve import fft2_shape
 from ..ops.dct import dct_residual
 from ..ops.glr import (
-    dft_spatial_factors,
     glr_spatial_chunked,
     glr_spatial_matmul,
     pack_profiles_toeplitz,
-    precompute_spatial,
     prepare_profiles,
+    spatial_operands,
 )
 from ..ops.lines import gather_windows
 from ..ops.localmax import compute_local_max
-from ..ops.pca import greedy_pca
+from ..ops.pca import greedy_pca_areas
 from ..ops.spatial import spatial_fsf, spatial_kernel_admits
 from ..ops.spectra import batched_source_spectra
 from ..ops.stats import o2test, standardize
@@ -654,43 +653,20 @@ class TorchEngine:
                            noise_population=50.0, itermax=100):
         """Zone-wise greedy PCA with device-resident gather/scatter.
 
-        Per area, the (Nz, Npix_area) column block is gathered on device,
-        cleaned by :func:`greedy_pca` and scattered back into a copy of
-        ``cube_std``.  Returns ``(faint, mapO2, nstop, factors)``, where
+        :func:`greedy_pca_areas` on a copy of ``cube_std``: per area, the
+        (Nz, Npix_area) column block is gathered on device, cleaned by
+        :func:`greedy_pca` and scattered back.  Returns ``(faint, mapO2, nstop, factors)``, where
         ``factors`` is the cube_faint recipe's payload: per area, its flat
         spatial indices and the rank-1 factors ``(U, C)`` that
         :func:`greedy_pca` removed, trimmed to the used columns as the JAX
         engine trims them.
         """
         cube_std = self.get("cube_std")
-        nz = cube_std.shape[0]
-        spatial_shape = tuple(cube_std.shape[1:])
-        flat = cube_std.reshape(nz, -1).clone()
-        areamap = np.asarray(areamap)
-        mapO2 = np.zeros(spatial_shape, dtype=np.int32)
-        nstop = 0
-        factors = []
-        for area in range(1, int(areamap.max()) + 1):
-            (idx,) = np.nonzero((areamap == area).ravel())
-            if idx.size == 0:
-                continue
-            didx = self._upload(idx.astype(np.int64))
-            cols = flat[:, didx]
-            valid = torch.ones(idx.size, dtype=torch.bool, device=self.device)
-            test = self._upload(np.asarray(testO2[area - 1], np.float32))
-            faint, m, k, u_mat, c_mat = greedy_pca(
-                cols, valid, test, float(thresholds[area - 1]),
-                noise_population=float(noise_population),
-                itermax=int(itermax), record_factors=True,
-            )
-            flat[:, didx] = faint
-            mapO2.ravel()[idx] = _host(m)
-            nstop += int(k)
-            u_mat, c_mat = _host(u_mat), _host(c_mat)
-            used = np.flatnonzero((u_mat != 0).any(axis=0))
-            if used.size:
-                factors.append((idx, u_mat[:, used],
-                                np.ascontiguousarray(c_mat[used])))
+        flat = cube_std.reshape(cube_std.shape[0], -1).clone()
+        mapO2, nstop, factors = greedy_pca_areas(
+            flat, areamap, thresholds, testO2,
+            noise_population=noise_population, itermax=itermax,
+            record_factors=True)
         return flat.reshape(cube_std.shape), mapO2, nstop, factors
 
     # -- step 05 -----------------------------------------------------------
@@ -747,16 +723,8 @@ class TorchEngine:
         """Step 05's spatial stage on the whole cube: (cube_fsf,
         norm_fsf) from the precomputed FSF spectra bank."""
         ny, nx = faint.shape[1:]
-        factors = {
-            k: self._upload(v)
-            for k, v in dft_spatial_factors(
-                ny, nx, fshape2, psfs.shape[-2:]).items()
-        }
-        kern_hats, norm_fsf = precompute_spatial(self._upload(psfs), wmaps,
-                                                 ny, nx, fshape2)
-        kern_r = kern_hats.real.contiguous()
-        kern_i = kern_hats.imag.contiguous()
-        del kern_hats
+        kern_r, kern_i, factors, norm_fsf = spatial_operands(
+            self._upload(psfs), wmaps, ny, nx, fshape2)
         # the JAX engine's route (engine.py:1025-1032): the fused spatial
         # kernel only in bf16x3 and only on a field it admits, else the
         # float32 matmul chain (XLA there, cuBLAS here); not a fallback

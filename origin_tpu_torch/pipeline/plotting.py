@@ -147,7 +147,7 @@ class PlotMixin:
             std = _need(self.cube_std, "step01_preprocessing", "cube_std")
             spaxels = std.data[:, np.asarray(self.areamap.data) == area]
             _, counts, edges, cut, mu, sig = compute_pca_threshold(
-                spaxels, pfa
+                spaxels, pfa, device=self.engine.device
             )
 
         mid, model = _fitted_null(edges, counts, mu, sig)

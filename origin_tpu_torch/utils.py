@@ -1,12 +1,32 @@
 """Small shared utilities.
 
-(The port's copy of ``progressbar`` from ``origin_tpu/utils.py``, without
-tqdm: the port depends on nothing that the card's machine may lack.)
+(The port's copies of ``timeit`` and ``progressbar`` from
+``origin_tpu/utils.py``, the latter without tqdm: the port depends on
+nothing that the card's machine may lack.)
 """
 
 from __future__ import annotations
 
-__all__ = ["progressbar"]
+import logging
+from functools import wraps
+from time import time
+
+__all__ = ["timeit", "progressbar"]
+
+
+def timeit(f):
+    """Debug-log the wall time of each call of ``f`` on its module's
+    logger."""
+
+    @wraps(f)
+    def timed(*args, **kw):
+        logger = logging.getLogger(f.__module__)
+        t0 = time()
+        result = f(*args, **kw)
+        logger.debug("%s executed in %0.1fs", f.__name__, time() - t0)
+        return result
+
+    return timed
 
 
 def progressbar(iterable=None, **kwargs):

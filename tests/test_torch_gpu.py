@@ -327,18 +327,6 @@ def test_cuda_bf16x3_sweep_splits(cuda, dico):
     assert sep >= 1.5 * err
 
 
-def _mf_bank(prepped):
-    """The right-zero-padded (K, L) banks and centres of the JAX package's
-    ``_pack_profiles``: squares taken before the cast to float32, as the
-    Toeplitz banks take them."""
-    bank = np.zeros((2, len(prepped), max(len(q) for q, _ in prepped)),
-                    np.float32)
-    for k, (q, _) in enumerate(prepped):
-        bank[0, k, :len(q)] = q
-        bank[1, k, :len(q)] = np.asarray(q) ** 2
-    return bank[0], bank[1], [c for _, c in prepped]
-
-
 def _same_bits(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -364,8 +352,8 @@ def test_cuda_spaxel_major_sweeps_match_plain(cuda, shape, dico, entry):
         cr, mr, pr = kernels.banded_matmul_plain(xs, ns, t_num, t_den,
                                                  pad_left, nz)
     else:
-        bank, bank2, centers = _mf_bank(_profiles(dico,
-                                                  np.random.default_rng(6)))
+        bank, bank2, centers = glr._pack_profiles(
+            _profiles(dico, np.random.default_rng(6)))
         fn = kernels.matched_filter_spectral
         before = fn.launches
         c, m, p = fn(xs, ns, bank, bank2, centers)

@@ -282,7 +282,7 @@ def test_detection_order_matches_np_where():
 def test_compute_pca_threshold_matches():
     rng = np.random.default_rng(12)
     area = rng.normal(size=(80, 400)) * rng.uniform(0.8, 1.2, size=400)
-    for a, b in zip(tpca.compute_pca_threshold(area, 0.01),
+    for a, b in zip(tpca.compute_pca_threshold(area, 0.01, device="cpu"),
                     jpca.compute_pca_threshold(area, 0.01)):
         np.testing.assert_array_equal(a, b)
 
