@@ -58,12 +58,13 @@ c. the spaxel-major sweeps ``matched_filter_spectral`` and
    CUDA-event times of one kernel launch (taps and outputs prebuilt), of
    the entry and of the plain version, and the kernel's share of its
    bound;
-d. steps 01-07 of the minicube and of the field with
+d. steps 01-07 of the minicube and steps 01-11 of the field with
    ``ORIGIN_TPU_PRECISION=bf16x3``: the spatial and bf16x3 sweep counters
    must move; the minicube's Cat0/Cat1 equal the ``highest`` run's and
-   its correl threshold is within 1e-3 of it; the field's Cat0/Cat1 are
-   within one line of the ``highest`` run's and its correl threshold
-   within 0.005;
+   its correl threshold is within 1e-3 of it; the field's Cat0/Cat1 and
+   Cat3 lines and sources are within one line of the ``highest`` run's
+   and its correl threshold within 0.005; the field's steps 08-11 are
+   checked as phase 5's;
 e. resume on the card: session B runs steps 01-04 of the field file and
    writes itself in dense files (the three ``ORIGIN_TPU_STORE_*`` knobs
    at 0 around its write only); session C loads B's folder (``ORIGIN.load(...,
@@ -153,7 +154,30 @@ k. the library surface, through the top-level names of
    and purity table exactly, and on its own auto grid (the float64
    linspace of the JAX package's single form) the same counts and a
    threshold within 1e-3; each call's wall by CUDA events is printed
-   beside the card's name and power limit.
+   beside the card's name and power limit;
+l. the system's configurations beyond the default, on the field file,
+   each session steps 01-11 with each step's wall and peak device memory
+   (reset before the step), its launches (counters set to 0 before its
+   init, read after step 11: the path's kernels exactly, nothing else),
+   thresholds and Cat0/Cat1/Cat3, and one source file and two mask files
+   per Cat3 source.  l1: the 20-profile dictionary ``Dico_FWHM_2_12`` at
+   ``highest``: kernel 1 once, cube_profile uint8 below 20 with at least
+   4 profiles among the Cat1 lines, the peak within 2% of phase 5's, step
+   08's first 16 rows against the CPU, every source file's OR_PROF naming
+   the dictionary, and steps 05-07 re-run with the plain sweep giving the
+   same Cat1; l2: the same in bf16x3: kernels 1b and 2 once each,
+   Cat0/Cat1 within one line of l1's and the correl threshold within
+   0.005; l3: the field written again with four fields (``CONFIG_FIELDS``:
+   one Moffat FSF each, its FWHM varying with the wavelength) under a 2 x
+   2 field map, at ``highest`` (kernel 1 once; 4 PSFs and 4 weight maps;
+   step 08's first 16 rows with the field weights against the CPU; every
+   source file carrying the four fields' FSF keywords and its own, the
+   fields' combined at the source; steps 05-07 with the plain sweep; the
+   session loaded on the card keeping the PSF list and weight maps) and
+   in bf16x3 (kernel 2 once per field, 4 launches, and the bf16x3 sweep
+   once; kernel 2 on the session's own cube_faint and weight maps against
+   its plain version at 1e-5, both timed; Cat0/Cat1 within one line of
+   ``highest``'s and the correl threshold within 0.005).
 
 Every fresh session of a field file runs the streamed ingest by default,
 so phases 5 and e-h hold it too (phases 5 and h check that their
@@ -181,7 +205,8 @@ phase g's CLI run and resumed export, phase h's two full-field runs and
 phase j's two surveys for the float32 sweep again, phase k's
 ``Correlation_GLR_test`` for the float32 sweep and its ``glr_spectral``
 for the spaxel-major matched filter (the launches that the kernel line
-reports for it).  The next-to-last line
+reports for it), and each session of phase l (its launches of kernels 1,
+1b and 2 in the kernel line's ``config_launches``).  The next-to-last line
 of stdout is a JSON record of the kernels, the line before it the card's
 name and power limit, the last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
@@ -725,7 +750,8 @@ def phase_sweep_parity(precision, float32=None):
 # -- phases 4, 5 and d --------------------------------------------------------
 STEP_NAMES = ("step01", "step02", "step03", "step04", "step05", "step06",
               "step07", "step08", "step09", "step10", "step11")
-# phase d's bf16x3 runs stop at Cat1: steps 08-11 run no kernel
+# phase d's bf16x3 minicube run and phase i3 stop at Cat1: steps 08-11 run
+# no kernel
 FRONT_STEPS = STEP_NAMES[:7]
 # the field's step parameters (defaults otherwise); the minicube adds its
 # areas and segmap
@@ -867,10 +893,10 @@ def _minicube_lines_checks(orig):
     return dict(cat2_rel_err=errs, cat3=counts)
 
 
-def _field_lines_checks(orig):
+def _field_lines_checks(orig, label="field"):
     """Step 08 of the field's first Cat1 rows on the card against the
-    port's own run on the CPU: x, y, z and ok equal, flux and lines at
-    the CPU tests' tolerance."""
+    port's own run on the CPU (with the session's field weights, if any):
+    x, y, z and ok equal, flux and lines at the CPU tests' tolerance."""
     import numpy as np
     import torch
 
@@ -880,28 +906,28 @@ def _field_lines_checks(orig):
     pos = [np.asarray(cat1[c], int) for c in ("x0", "y0", "z0")]
     # step 08's parameters are the function's defaults
     card = estimation_line_arrays(*pos, None, None, orig.PSF,
-                                  engine=orig.engine)
+                                  weights=orig.wfields, engine=orig.engine)
     t0 = time.perf_counter()
     cpu = estimation_line_arrays(*pos, orig.cube_raw, orig.var, orig.PSF,
-                                 device="cpu")
+                                 weights=orig.wfields, device="cpu")
     cpu_s = time.perf_counter() - t0
     n = len(pos[0])
     same = all(np.array_equal(card[k], cpu[k]) for k in ("x", "y", "z",
                                                          "ok"))
-    check(same, f"field step 08 of {n} rows on the card: x, y, z and ok "
+    check(same, f"{label} step 08 of {n} rows on the card: x, y, z and ok "
           f"equal the CPU run's ({cpu_s:.1f} s, {torch.get_num_threads()} "
           "threads)")
     errs = dict(flux=_rel_err(card["flux"], cpu["flux"]),
                 line=_rel_err(card["line"], cpu["line"], per_row=True))
     check(errs["flux"] <= FLUX_RTOL and errs["line"] <= LINE_RTOL,
-          f"field step 08 on the card: flux within rtol {errs['flux']:.3g} "
+          f"{label} step 08 on the card: flux within rtol {errs['flux']:.3g} "
           f"<= {FLUX_RTOL:g}, lines within {errs['line']:.3g} <= "
           f"{LINE_RTOL:g} of their largest magnitude, of the CPU run's")
     rows = [np.asarray(orig.Cat2[c])[:n] for c in ("x", "y", "z")]
     ok = card["ok"]
     check(all(np.array_equal(r[ok], card[c][ok])
               for r, c in zip(rows, ("x", "y", "z"))),
-          "field Cat2's first rows hold the card's line positions")
+          f"{label} Cat2's first rows hold the card's line positions")
     return dict(rows=n, cpu_s=cpu_s, rel_err=errs,
                 ok=int(card["ok"].sum()))
 
@@ -2715,7 +2741,7 @@ def phase_bf16x3(field, highest):
         log("  minicube:")
         mini = phase_minicube("bf16x3", FRONT_STEPS)
         log("  field:")
-        runs, counts, _ = phase_field(field, "bf16x3", FRONT_STEPS)
+        runs, counts, _ = phase_field(field, "bf16x3")
     finally:
         if prev is None:
             os.environ.pop("ORIGIN_TPU_PRECISION")
@@ -2741,6 +2767,10 @@ def phase_bf16x3(field, highest):
     check(dfield <= BF16X3_FIELD_THRESH_TOL, f"field bf16x3 correl "
           f"threshold within {dfield:.3g} <= {BF16X3_FIELD_THRESH_TOL} of "
           f"highest")
+    check(all(abs(a - b) <= COUNT_TOL for a, b in zip(got["cat3"][:2],
+                                                       hif["cat3"][:2])),
+          f"field bf16x3 Cat3 lines / sources {got['cat3'][:2]} within "
+          f"{COUNT_TOL} line of highest's {hif['cat3'][:2]}")
     return dict(minicube=mini, field=runs, launches=counts)
 
 
@@ -3140,23 +3170,330 @@ def phase_library(ref, smi):
     return out
 
 
+# -- phase l ------------------------------------------------------------------
+# config 4 on the field: four fields, each a Moffat FSF whose FWHM varies
+# with the wavelength as make_field's ([-0.2, 0.7] arcsec), offset per
+# field, and its own beta; the field map's 2 x 2 quadrants (50 x 100 each)
+CONFIG_FIELDS = tuple(([-0.2, 0.64 + 0.04 * f], [2.6 + 0.1 * f])
+                      for f in range(4))
+# the profiles the K=20 runs must find among their Cat1 lines, at least
+CONFIG_K20_PROFILES = 4
+
+
+def _config_launches(precision, nfields=1):
+    """The launches of one session's steps 01-11: the sweep of its
+    precision once, the spatial kernel once per field in bf16x3."""
+    want = dict.fromkeys(KERNEL_SOURCES, 0)
+    if precision == "bf16x3":
+        want.update(toeplitz_sweep_bf16x3=1, spatial_fsf=nfields)
+    else:
+        want["toeplitz_sweep"] = 1
+    return want
+
+
+def _config_session(label, field_fn, precision, **init):
+    """Steps 01-11 of ``field_fn`` at ``precision`` with the init keywords
+    ``init``; each step's wall and peak (reset before it), the launches
+    (counters set to 0 before the init, read after step 11) and the
+    step-05 cubes as they were before the closing write.  The precision's
+    environment is restored after the run."""
+    import torch
+
+    from origin_tpu_torch.pipeline.session import ORIGIN
+
+    prev = os.environ.get("ORIGIN_TPU_PRECISION")
+    os.environ["ORIGIN_TPU_PRECISION"] = precision
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        orig = ORIGIN.init(field_fn, name=f"config_{label}", path=WORK,
+                           loglevel="WARNING", device="cuda", **init)
+        walls, peaks = {}, {}
+        with _BeforeWrite(ORIGIN, ("cube_faint", "cube_profile")) as live:
+            for name in STEP_NAMES:
+                torch.cuda.reset_peak_memory_stats()
+                walls.update(_run_steps(orig, STEP_KWARGS, (name,)))
+                peaks[name] = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+    finally:
+        os.environ.pop("ORIGIN_TPU_PRECISION", None)
+        if prev is not None:
+            os.environ["ORIGIN_TPU_PRECISION"] = prev
+    check(_reader(orig) == "streamed", f"{label}: the session took the "
+          "streamed ingest")
+    nmask, nsrc, nbytes = _source_files(orig)
+    out = dict(walls=walls, peaks=peaks, peak_bytes=max(peaks.values()),
+               total=sum(walls.values()), launches=counts,
+               mask_files=nmask, source_files=nsrc, source_bytes=nbytes,
+               threshold=float(orig.param["threshold"]),
+               threshold_std=float(orig.param["threshold_std"]),
+               cat0=len(orig.Cat0), cat1=len(orig.Cat1),
+               cat3=_cat3_counts(orig))
+    log(f"  {label}: " + " ".join(
+        f"{k} {walls[k]:.3f}s/{peaks[k] / 2**30:.3f}GiB" for k in walls))
+    log(f"  {label}: steps 01-11 {out['total']:.3f} s, peak "
+        f"{out['peak_bytes'] / 2**30:.3f} GiB ({out['peak_bytes']} bytes); "
+        f"thresholds {out['threshold']:.6f} / {out['threshold_std']:.6f}, "
+        f"Cat0 {out['cat0']}, Cat1 {out['cat1']}, Cat3 lines / sources / "
+        f"comp=1 {out['cat3']}; {nsrc} source files, {nmask} mask files")
+    return orig, out, live.tensors
+
+
+def _hold_config_launches(label, out, want):
+    check(out["launches"] == want, f"{label}: launches {out['launches']}, "
+          "the path's kernels only, none falling back to a plain version")
+
+
+def _hold_config_files(label, orig, out):
+    check(out["source_files"] == len(orig.Cat3_sources) > 0
+          and out["mask_files"] == 2 * out["source_files"],
+          f"{label}: one source file and two mask files for each of the "
+          f"{len(orig.Cat3_sources)} Cat3 sources")
+
+
+def _source_headers(orig):
+    from origin_tpu_torch import fitsio
+
+    folder = os.path.join(orig.outpath, "sources")
+    return {n: fitsio.getheader(os.path.join(folder, n), 0)
+            for n in sorted(os.listdir(folder)) if n.endswith(".fits")}
+
+
+def _within_a_line(label, got, ref, ref_label):
+    for key in ("cat0", "cat1"):
+        check(abs(got[key] - ref[key]) <= COUNT_TOL,
+              f"{label} {key} {got[key]} within {COUNT_TOL} line of "
+              f"{ref_label}'s {ref[key]}")
+    dthr = abs(got["threshold"] - ref["threshold"])
+    check(dthr <= BF16X3_FIELD_THRESH_TOL, f"{label} correl threshold "
+          f"within {dthr:.3g} <= {BF16X3_FIELD_THRESH_TOL} of {ref_label}'s")
+
+
+def _fields_file(field_fn):
+    """The field file again with its FSF header replaced by the four
+    fields of CONFIG_FIELDS, and the 2 x 2 field map; their paths."""
+    import numpy as np
+
+    from origin_tpu_torch.core import Cube, Image, MoffatFSF
+
+    cube = Cube(field_fn)
+    hdr = cube.primary_header
+    for key in list(hdr.keys()):
+        if key.startswith("FSF") and key not in ("FSFMODE", "FSFLB1",
+                                                 "FSFLB2"):
+            del hdr[key]
+    lbrange = (float(hdr["FSFLB1"]), float(hdr["FSFLB2"]))
+    for f, (fwhm, beta) in enumerate(CONFIG_FIELDS):
+        MoffatFSF(fwhm, beta, lbrange=lbrange, field=f).to_header(hdr)
+    fields_fn = os.path.join(WORK, "field_4fsf.fits")
+    cube.write(fields_fn)
+    _, ny, nx = cube.shape
+    fmap = np.zeros((ny, nx), np.int64)
+    fmap[:ny // 2, :nx // 2], fmap[:ny // 2, nx // 2:] = 1, 2
+    fmap[ny // 2:, :nx // 2], fmap[ny // 2:, nx // 2:] = 3, 4
+    fmap_fn = os.path.join(WORK, "fieldmap_2x2.fits")
+    Image(data=fmap).write(fmap_fn)
+    return fields_fn, fmap_fn
+
+
+def _hold_spatial_on_session(label, orig, faint):
+    """Kernel 2 on the session's own cube_faint, FSFs and weight maps
+    against its plain version (bf16x3), both timed by CUDA events; the
+    launches made here are not the path's."""
+    import numpy as np
+    import torch
+
+    from origin_tpu_torch.ops.convolve import fft2_shape
+    from origin_tpu_torch.ops.glr import glr_spatial_matmul, spatial_operands
+    from origin_tpu_torch.ops.spatial import spatial_fsf
+
+    dev = faint.device
+    psfs = torch.from_numpy(np.stack([np.asarray(p, np.float32)
+                                      for p in orig.PSF])).to(dev)
+    wmaps = torch.from_numpy(np.stack([np.asarray(w, np.float32)
+                                       for w in orig.wfields])).to(dev)
+    ny, nx = faint.shape[1:]
+    fshape2 = fft2_shape((ny, nx), psfs.shape[-2:])
+    kern_r, kern_i, factors, _ = spatial_operands(psfs, wmaps, ny, nx,
+                                                  fshape2)
+    args = (faint, kern_r, kern_i, wmaps, factors)
+    got = spatial_fsf(*args, precision="bf16x3")
+    ref = glr_spatial_matmul(*args, precision="bf16x3")
+    err = float((got - ref).abs().max())
+    del got, ref
+    ms = _time_cuda(lambda: spatial_fsf(*args, precision="bf16x3"), 3)
+    plain_ms = _time_cuda(lambda: glr_spatial_matmul(*args,
+                                                     precision="bf16x3"), 3)
+    check(err <= SPATIAL_ATOL["bf16x3"], f"{label}: the spatial kernel on "
+          f"the session's cube_faint and {len(orig.wfields)} weight maps "
+          f"within {err:.3g} <= {SPATIAL_ATOL['bf16x3']:g} of its plain "
+          f"version; {ms:.3f} ms for the {kern_r.shape[0]} launches, plain "
+          f"{plain_ms:.3f} ms; FSF spectra bank {kern_r.shape} x 2, "
+          f"{2 * kern_r.numel() * 4 / 2**30:.3f} GiB")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                nfields=int(kern_r.shape[0]),
+                bank_bytes=2 * kern_r.numel() * 4)
+
+
+def phase_configs(field, cold, smi):
+    """The system's configurations beyond the default on the field file:
+    l1, the 20-profile dictionary at highest; l2, the same in bf16x3; l3,
+    four fields with one FSF each under a 2 x 2 field map, at highest and
+    in bf16x3 (see the module doc).  ``cold``: phase 5's cold run."""
+    import numpy as np
+
+    from origin_tpu_torch.core import DICO_FWHM_2_12
+    from origin_tpu_torch.core.fsf import (
+        SOURCE_FIELD,
+        combine_fsf,
+        field_weights,
+        read_fsf_from_header,
+    )
+    from origin_tpu_torch.pipeline.session import ORIGIN
+
+    field_fn = field[0]
+    out = {}
+    t_phase = time.perf_counter()
+    log(f"  {smi}")
+
+    log("  l1: the 20-profile dictionary, highest, steps 01-11")
+    orig, l1, live = _config_session("l1", field_fn, "highest",
+                                     profiles=DICO_FWHM_2_12)
+    _hold_config_launches("l1", l1, _config_launches("highest"))
+    prof = live["cube_profile"]
+    cat_prof = np.unique(np.asarray(orig.Cat1["profile"]))
+    check(str(prof.dtype) == "torch.uint8" and int(prof.max()) < 20
+          and len(cat_prof) >= CONFIG_K20_PROFILES,
+          f"l1: cube_profile is {prof.dtype} with max {int(prof.max())} < "
+          f"20; the Cat1 lines take {len(cat_prof)} profiles "
+          f"({cat_prof.tolist()})")
+    del live, prof
+    p5 = cold["peak_bytes"]
+    check(l1["peak_bytes"] <= PEAK_GROWTH * p5,
+          f"l1: peak {l1['peak_bytes'] / 2**30:.3f} GiB within "
+          f"{PEAK_GROWTH:g} x phase 5's {p5 / 2**30:.3f} GiB "
+          f"({l1['peak_bytes'] / p5:.4f}): the profile cube stays uint8")
+    l1["lines"] = _field_lines_checks(orig, "l1")
+    _hold_config_files("l1", orig, l1)
+    names = {os.path.basename(str(h.get("OR_PROF")))
+             for h in _source_headers(orig).values()}
+    check(names == {DICO_FWHM_2_12}, f"l1: every source file's OR_PROF "
+          f"names {sorted(names)}")
+    _rerun_with_plain(orig, STEP_KWARGS, "highest", "l1, K=20, highest,")
+    orig.close_logfile()
+    shutil.rmtree(orig.outpath, ignore_errors=True)
+    del orig
+    out["l1"] = l1
+
+    log("  l2: the 20-profile dictionary, bf16x3, steps 01-11")
+    orig, l2, live = _config_session("l2", field_fn, "bf16x3",
+                                     profiles=DICO_FWHM_2_12)
+    del live
+    _hold_config_launches("l2", l2, _config_launches("bf16x3"))
+    _within_a_line("l2", l2, l1, "l1")
+    _hold_config_files("l2", orig, l2)
+    orig.close_logfile()
+    shutil.rmtree(orig.outpath, ignore_errors=True)
+    del orig
+    out["l2"] = l2
+
+    t0 = time.perf_counter()
+    fields_fn, fmap_fn = _fields_file(field_fn)
+    log(f"  l3: {len(CONFIG_FIELDS)} fields written to {fields_fn} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for precision in ("highest", "bf16x3"):
+        label = f"l3 {precision}"
+        log(f"  {label}: {len(CONFIG_FIELDS)} fields, 2 x 2 field map, "
+            "steps 01-11")
+        orig, l3, live = _config_session(
+            f"l3_{precision}", fields_fn, precision, fieldmap=fmap_fn)
+        check(isinstance(orig.PSF, list) and len(orig.PSF) == 4
+              and orig.wfields is not None and len(orig.wfields) == 4,
+              f"{label}: the session holds 4 PSFs and 4 weight maps, "
+              f"FWHM_PSF {np.round(orig.FWHM_PSF, 3).tolist()}")
+        _hold_config_launches(label, l3, _config_launches(
+            precision, len(CONFIG_FIELDS)))
+        _hold_config_files(label, orig, l3)
+        if precision == "highest":
+            l3["lines"] = _field_lines_checks(orig, label)
+            models = read_fsf_from_header(
+                orig.cube.primary_header,
+                pixstep=float(orig.wcs.get_step(unit="arcsec")[0]))
+            heads = _source_headers(orig)
+            own = []
+            for row in orig.Cat3_sources:
+                hdr = heads["source-%05d.fits" % int(row["ID"])]
+                fields = all(
+                    np.allclose([hdr["FSF%02dF%02d" % (f, i)]
+                                 for i in range(2)] + [hdr["FSF%02dB00" % f]],
+                                fw + be, rtol=1e-12, atol=0)
+                    for f, (fw, be) in enumerate(CONFIG_FIELDS))
+                model = combine_fsf(models, field_weights(
+                    orig.wfields, row["y"], row["x"]))
+                mine = [hdr.get("FSF%02d%s" % (SOURCE_FIELD, k), np.nan)
+                        for k in ("F00", "F01", "B00")]
+                own.append(fields and np.allclose(
+                    mine, model.fwhm_pol + model.beta_pol, rtol=1e-12,
+                    atol=0))
+            check(all(own), f"{label}: each of the {len(own)} source files "
+                  "carries the four fields' FSF keywords and its own FSF, "
+                  "the fields' combined at the source")
+            _rerun_with_plain(orig, STEP_KWARGS, "highest",
+                              "l3, 4 fields, highest,")
+            loaded = ORIGIN.load(orig.outpath, device="cuda")
+            same = (isinstance(loaded.PSF, list) and len(loaded.PSF) == 4
+                    and all(np.array_equal(np.asarray(a), b)
+                            for a, b in zip(loaded.PSF, orig.PSF))
+                    and loaded.wfields is not None
+                    and all(np.array_equal(np.asarray(a), np.asarray(b))
+                            for a, b in zip(loaded.wfields, orig.wfields)))
+            loaded.close_logfile()
+            del loaded
+            check(same, f"{label}: the session written by step 11, loaded "
+                  "on the card, keeps the 4 PSFs and weight maps")
+        else:
+            l3["spatial"] = _hold_spatial_on_session(label, orig,
+                                                     live["cube_faint"])
+            _within_a_line(label, l3, out["l3_highest"], "l3 highest")
+        del live
+        orig.close_logfile()
+        shutil.rmtree(orig.outpath, ignore_errors=True)
+        del orig
+        out[f"l3_{precision}"] = l3
+    for fn in (fields_fn, fmap_fn):
+        os.remove(fn)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase l: {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_line(res):
     sweep, sweep3 = res["sweep"][3], res["sweep_bf16x3"][3]
     spatial = res["spatial"]["field"]
+
+    def configs(name):
+        """Phase l's launches of ``name``, per run that launched it."""
+        return {run: got["launches"][name]
+                for run, got in res["configs"].items()
+                if isinstance(got, dict) and got["launches"][name]}
     rows = dict(
         toeplitz_sweep=dict(
             launches=res["field"]["cold"]["launches"]["toeplitz_sweep"],
             mesh_launches=res["mesh"]["i1"]["launches"]["toeplitz_sweep"],
             library_launches=res["library"]["correlation_glr_test"][
                 "launches"]["toeplitz_sweep"],
+            config_launches=configs("toeplitz_sweep"),
             library_ms=None, **sweep),
         toeplitz_sweep_bf16x3=dict(
             launches=res["bf16x3"]["launches"]["toeplitz_sweep_bf16x3"],
             mesh_launches=res["mesh"]["i3"]["launches"][
                 "toeplitz_sweep_bf16x3"],
+            config_launches=configs("toeplitz_sweep_bf16x3"),
             library_ms=None, **sweep3),
         spatial_fsf=dict(
             launches=res["bf16x3"]["launches"]["spatial_fsf"],
+            config_launches=configs("spatial_fsf"),
             library_ms=spatial["library_ms"], precision="bf16x3",
             **spatial["bf16x3"]),
         matched_filter_spectral=dict(
@@ -3174,7 +3511,8 @@ def _kernel_line(res):
         source, replaces = KERNEL_SOURCES[name]
         out.append(dict(name=name, route="cuda", source=source,
                         replaces=replaces, **{k: row[k] for k in keys}))
-        for key in ("precision", "mesh_launches", "library_launches"):
+        for key in ("precision", "mesh_launches", "library_launches",
+                    "config_launches"):
             if key in row:
                 out[-1][key] = row[key]
     return {"kernels": out}
@@ -3216,7 +3554,7 @@ def main():
     res["sweep_bf16x3"] = phase_sweep_parity("bf16x3", res["sweep"])
     log("[c] spaxel-major sweeps vs plain at %dx%dx%d" % FIELD)
     res["spaxel_major"] = phase_spaxel_major()
-    log("[d] minicube and field steps 01-07 in bf16x3")
+    log("[d] minicube steps 01-07 and field steps 01-11 in bf16x3")
     res["bf16x3"] = phase_bf16x3(field, res)
     log("[e] resume on cuda: field steps 01-04, write, load, steps 05-11")
     res["resume"] = phase_resume(field, reference)
@@ -3241,6 +3579,10 @@ def main():
     log("[k] the library surface on cuda: Correlation_GLR_test, "
         "glr_spectral and Compute_threshold_purity on phase 5's products")
     res["library"] = phase_library(reference, res["versions"]["nvidia_smi"])
+    log("[l] the configurations on cuda: the 20-profile dictionary in both "
+        "precisions (l1, l2), four fields with one FSF each (l3)")
+    res["configs"] = phase_configs(field, res["field"]["cold"],
+                                   res["versions"]["nvidia_smi"])
     jaxed = sorted(m for m in sys.modules if m.split(".")[0] in
                    ("jax", "origin_tpu"))
     check(not jaxed, "nothing of JAX or of the JAX package was imported "

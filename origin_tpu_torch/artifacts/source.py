@@ -2,7 +2,8 @@
 
 (The port's copy of ``origin_tpu/artifacts/source.py``, without the int16
 cutouts of the JAX package's session files and without ``append_cube``,
-which only its two-phase writer used.)
+which only its two-phase writer used; ``add_FSF`` also records the FSF of
+a source in a multi-field cube, where the JAX package's step 11 fails.)
 
 Replaces the subset of ``mpdaf.sdetect.Source`` used by the reference's
 source-file writer (source_creation.py:26-436): a primary header of source
@@ -26,7 +27,12 @@ import numpy as np
 
 from .. import fitsio
 from ..core.containers import Cube, Image, Spectrum
-from ..core.fsf import read_fsf_from_header
+from ..core.fsf import (
+    SOURCE_FIELD,
+    combine_fsf,
+    read_field_fsf,
+    read_fsf_from_header,
+)
 from ..core.table import Table
 
 __all__ = ["Source"]
@@ -167,8 +173,14 @@ class Source:
         self.images[name] = image
         return image
 
-    def add_FSF(self, cube, fieldmap=None):
-        """Copy the FSF model keywords from a cube header."""
+    def add_FSF(self, cube, fieldmap=None, weights=None):
+        """Copy the FSF model keywords from a cube header.
+
+        A header of several fields also gets the source's own FSF, the
+        fields' models averaged with ``weights`` (the fields' weights at
+        the source, :func:`~origin_tpu_torch.core.fsf.field_weights`), as
+        field ``SOURCE_FIELD``, which :meth:`get_FSF` reads.
+        """
         hdr = cube.primary_header
         if "FSFMODE" not in hdr:
             raise ValueError("no FSF keywords in the cube header")
@@ -177,11 +189,20 @@ class Source:
                 self.header[key] = hdr[key]
         step = cube.wcs.get_step(unit="arcsec")[0] if cube.wcs else 0.2
         self.header["FSFSTEP"] = float(step), "pixel step used for FSF (arcsec)"
+        models = read_fsf_from_header(hdr, pixstep=float(step))
+        if isinstance(models, list):
+            if weights is None:
+                raise ValueError(
+                    f"the cube header holds {len(models)} FSF fields: the "
+                    "source's field weights are needed")
+            combine_fsf(models, weights).to_header(self.header)
 
     def get_FSF(self):
-        return read_fsf_from_header(
-            self.header, pixstep=float(self.header.get("FSFSTEP", 0.2))
-        )
+        """The source's FSF: its own if the cube had several fields."""
+        pixstep = float(self.header.get("FSFSTEP", 0.2))
+        if f"FSF{SOURCE_FIELD:02d}FNC" in self.header:
+            return read_field_fsf(self.header, SOURCE_FIELD, pixstep)
+        return read_fsf_from_header(self.header, pixstep=pixstep)
 
     def add_table(self, tbl, name, select_in=None, col_dist=None):
         self.tables[name] = tbl.copy()

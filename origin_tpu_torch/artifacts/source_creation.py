@@ -23,6 +23,7 @@ from datetime import datetime
 import numpy as np
 
 from ..core.containers import Cube, Image, Spectrum
+from ..core.fsf import field_weights
 from ..core.table import Table
 from ..utils import progressbar
 from ..version import version as origin_version
@@ -68,6 +69,7 @@ def create_source(
     cube_ori=None,
     spectra_pre=None,
     line_images_pre=None,
+    wfields=None,
 ):
     """Create one Source file (reference source_creation.py:26-436).
 
@@ -75,6 +77,9 @@ def create_source(
     :func:`create_all_sources`; otherwise the full cubes are read from the
     given filenames (the reference re-reads them for every source, which
     costs ~3 full-cube FITS reads per source on large fields).
+    ``wfields``: the session's per-field weight maps, needed when the cube
+    header holds several FSF fields; the source's FSF is then the fields'
+    models averaged with their weights at the source's (x, y).
     """
     ids = np.asarray(source_table["ID"])
     k = int(np.where(ids == source_id)[0][0])
@@ -205,12 +210,12 @@ def create_source(
     else:
         source.add_cube(data_cube, "MUSE_CUBE", size=mask_size,
                         add_white=True)
-    has_fsf = True
-    try:
-        source.add_FSF(data_cube)
-    except ValueError:
+    has_fsf = "FSFMODE" in data_cube.primary_header
+    if has_fsf:
+        source.add_FSF(data_cube, weights=None if wfields is None else
+                       field_weights(wfields, info["y"], info["x"]))
+    else:
         logger.debug("No FSF information found in the cube")
-        has_fsf = False
     data_cube = source.cubes["MUSE_CUBE"]
 
     ori_tag = "ORI_SNCUBE" if comp else "ORI_CORREL"
@@ -405,6 +410,7 @@ def create_all_sources(
     cube_std=None,
     spectra_pre=None,
     line_images_pre=None,
+    wfields=None,
 ):
     """Create and save one Source file per source.
 
@@ -418,7 +424,7 @@ def create_all_sources(
     filenames are still recorded in the sources.  With ``n_jobs != 1`` the
     sources are built in a thread pool of that many workers (all CPUs for
     ``n_jobs <= 0``); each job carries its own cutouts, so the files do
-    not depend on ``n_jobs``.
+    not depend on ``n_jobs``.  ``wfields`` as in :func:`create_source`.
     """
     source_ts = datetime.now().isoformat()
     ids = [int(s) for s in np.asarray(cat3_sources["ID"])]
@@ -490,6 +496,7 @@ def create_all_sources(
             cube_ori=_precut(ori, source_id, mask_size),
             spectra_pre=(spectra_pre or {}).get(source_id),
             line_images_pre=line_imgs,
+            wfields=wfields,
         )
 
     ids = progressbar(ids, desc="sources", leave=False)

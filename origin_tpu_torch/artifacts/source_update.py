@@ -143,9 +143,10 @@ def update_sources(
     source_idlist, cat3_sources, cat3_lines, origin_params, cube_cor_filename,
     cube_std_filename, mask_filename_tpl, skymask_filename_tpl,
     spectra_fits_filename, segmaps, version, profile_fwhm, out_tpl, *,
-    author="", nb_fwhm=2, expmap_filename=None,
+    author="", nb_fwhm=2, expmap_filename=None, wfields=None,
 ):
-    """Recreate the source files for a list of source IDs."""
+    """Recreate the source files for a list of source IDs (``wfields`` as
+    in :func:`~.source_creation.create_source`)."""
     source_ts = datetime.now().isoformat()
     try:
         for source_id in source_idlist:
@@ -160,6 +161,7 @@ def update_sources(
                 spectra_fits_filename, segmaps, version, source_ts,
                 profile_fwhm, author=author, nb_fwhm=nb_fwhm,
                 expmap_filename=expmap_filename, save_to=out_tpl % source_id,
+                wfields=wfields,
             )
     finally:
         # per-source lazy loads shared rebuild contexts pinning the full

@@ -1,6 +1,9 @@
 """Field spread function (FSF) models and mosaic field maps.
 
-(The port's copy of ``origin_tpu/core/fsf.py``, unchanged apart from this note.)
+(The port's copy of ``origin_tpu/core/fsf.py``, with
+:func:`read_field_fsf`, :func:`field_weights` and :func:`combine_fsf`
+added: the FSF of one source of a multi-field session, which the JAX
+package's step 11 lacks.)
 
 Replaces the subset of ``mpdaf.MUSE.FSFModel`` / ``mpdaf.MUSE.FieldsMap`` used
 by the reference (origin.py:579-649): a circular Moffat FSF whose FWHM and
@@ -24,7 +27,12 @@ import numpy as np
 
 from ..fitsio import Header
 
-__all__ = ["MoffatFSF", "read_fsf_from_header", "FieldsMap", "moffat_image"]
+__all__ = ["MoffatFSF", "read_fsf_from_header", "FieldsMap", "moffat_image",
+           "read_field_fsf", "field_weights", "combine_fsf", "SOURCE_FIELD"]
+
+#: the field index under which a source file records its own FSF, the
+#: fields' models combined at the source (:func:`combine_fsf`)
+SOURCE_FIELD = 99
 
 
 def moffat_image(fwhm_pix, beta, shape):
@@ -100,6 +108,19 @@ class MoffatFSF:
         return hdr
 
 
+def read_field_fsf(hdr, field, pixstep=0.2):
+    """The FSF model of one field of a FITS header (KeyError if the header
+    lacks it)."""
+    key = f"FSF{field:02d}"
+    fwhm_pol = [float(hdr[f"{key}F{i:02d}"])
+                for i in range(int(hdr[f"{key}FNC"]))]
+    beta_pol = [float(hdr[f"{key}B{i:02d}"])
+                for i in range(int(hdr[f"{key}BNC"]))]
+    lbrange = (float(hdr.get("FSFLB1", 5000.0)), float(hdr.get("FSFLB2", 9000.0)))
+    return MoffatFSF(fwhm_pol, beta_pol, lbrange=lbrange, pixstep=pixstep,
+                     field=field)
+
+
 def read_fsf_from_header(hdr, pixstep=0.2):
     """Read FSF model(s) from a FITS header.
 
@@ -108,7 +129,6 @@ def read_fsf_from_header(hdr, pixstep=0.2):
     """
     if "FSFMODE" not in hdr:
         raise ValueError("missing FSF keywords in the cube FITS header")
-    lbrange = (float(hdr.get("FSFLB1", 5000.0)), float(hdr.get("FSFLB2", 9000.0)))
     models = []
     for ff in range(100):
         key = f"FSF{ff:02d}FNC"
@@ -116,16 +136,45 @@ def read_fsf_from_header(hdr, pixstep=0.2):
             if ff == 0:
                 continue
             break
-        nf = int(hdr[key])
-        fwhm_pol = [float(hdr[f"FSF{ff:02d}F{i:02d}"]) for i in range(nf)]
-        nb = int(hdr[f"FSF{ff:02d}BNC"])
-        beta_pol = [float(hdr[f"FSF{ff:02d}B{i:02d}"]) for i in range(nb)]
-        models.append(
-            MoffatFSF(fwhm_pol, beta_pol, lbrange=lbrange, pixstep=pixstep, field=ff)
-        )
+        models.append(read_field_fsf(hdr, ff, pixstep))
     if not models:
         raise ValueError("FSFMODE present but no FSF coefficients found")
     return models[0] if len(models) == 1 else models
+
+
+def field_weights(wfields, y, x):
+    """The weight of each field at pixel (y, x), rounded to the nearest
+    pixel of the field and clipped into it."""
+    ny, nx = np.shape(wfields[0])
+    yi = min(max(int(np.round(y)), 0), ny - 1)
+    xi = min(max(int(np.round(x)), 0), nx - 1)
+    return [float(np.asarray(w)[yi, xi]) for w in wfields]
+
+
+def combine_fsf(models, weights):
+    """One source's FSF in a multi-field session: the fields' FWHM and beta
+    polynomials averaged with ``weights`` (the fields' weights at the
+    source, :func:`field_weights`; equal weights where they sum to 0,
+    as the session's mean FWHM takes them).  A weighted sum of
+    polynomials is the polynomial of the weighted coefficients, padded to
+    one degree, so the result is again a :class:`MoffatFSF`, recorded as
+    field :data:`SOURCE_FIELD`.
+    """
+    w = np.asarray(weights, dtype=float)
+    if len(w) != len(models):
+        raise ValueError(f"{len(w)} weights for {len(models)} FSF models")
+    w = w / w.sum() if w.sum() > 0 else np.full(len(w), 1.0 / len(w))
+
+    def mean_pol(pols):
+        deg = max(len(p) for p in pols)
+        padded = np.array([[0.0] * (deg - len(p)) + list(p) for p in pols])
+        return list(w @ padded)
+
+    ref = models[0]
+    return MoffatFSF(mean_pol([m.fwhm_pol for m in models]),
+                     mean_pol([m.beta_pol for m in models]),
+                     lbrange=ref.lbrange, pixstep=ref.pixstep,
+                     field=SOURCE_FIELD)
 
 
 class FieldsMap:

@@ -831,11 +831,12 @@ class TorchEngine:
     def source_spectra(self, jobs_by_size, wcube_fn=None):
         """Batched device extraction of every source's spectra.
 
-        ``jobs_by_size`` maps a cutout edge ``m`` to a list of job dicts
-        (see :func:`origin_tpu_torch.ops.spectra.batched_source_spectra`)
-        whose ``y0``/``x0`` are window starts in FIELD coordinates
-        (possibly negative near the border).  ``wcube_fn(m)`` returns the
-        (Nz, m, m) PSF weight cube for that size, or None.  The windows
+        ``jobs_by_size`` maps ``(m, fsf)``, a cutout edge and a key of
+        the sources' FSF, to a list of job dicts (see
+        :func:`origin_tpu_torch.ops.spectra.batched_source_spectra`) whose
+        ``y0``/``x0`` are window starts in FIELD coordinates (possibly
+        negative near the border).  ``wcube_fn(m, fsf)`` returns the
+        (Nz, m, m) PSF weight cube of that size and FSF.  The windows
         are gathered from the resident inputs, cells outside the field
         filled as the JAX engine's padded copies are.
 
@@ -847,8 +848,8 @@ class TorchEngine:
             return {}
         inputs = (self.input_cube(), self.input_var(), self.input_mask())
         out = {}
-        for m, jobs in sorted(jobs_by_size.items()):
-            wcube = wcube_fn(m) if wcube_fn is not None else None
+        for (m, fsf), jobs in jobs_by_size.items():
+            wcube = wcube_fn(m, fsf) if wcube_fn is not None else None
 
             def spectra(cubes, y0, group):
                 return batched_source_spectra(

@@ -33,7 +33,7 @@ from ..artifacts.masks import _fetch_line_images, create_masks
 from ..artifacts.source import _moffat_weight_cube
 from ..artifacts.source_creation import create_all_sources
 from ..core.containers import Image, Spectrum, cutout_window
-from ..core.fsf import read_fsf_from_header
+from ..core.fsf import combine_fsf, field_weights, read_fsf_from_header
 from ..core.table import Table, vstack
 from ..detect import (
     add_tglr_stat,
@@ -904,6 +904,7 @@ class SaveSources(Step):
             cube_std=orig.cube_std if (comps == 1).any() else None,
             spectra_pre=spectra_pre,
             line_images_pre=line_images_pre,
+            wfields=orig.wfields,
         )
 
         # checkpoint the session the sources reference (the reference
@@ -996,23 +997,35 @@ class SaveSources(Step):
             for (sid, num), (data, _msk) in got.items():
                 line_images_pre[(sid, num)] = np.ascontiguousarray(data)
 
-        # round 2: all spectra, with the line images as weights
+        # round 2: all spectra, with the line images as weights; in a
+        # multi-field session each source's FSF is the fields' models
+        # combined at the source (as create_source records it), so the
+        # jobs are grouped by cutout size and FSF
         hdr = orig.cube.primary_header
         wcube_fn = None
+        fsf_of = {}
         if "FSFMODE" in hdr:
-            step_arc = orig.wcs.get_step(unit="arcsec")[0]
-            fsfmodel = read_fsf_from_header(hdr, pixstep=float(step_arc))
+            step_arc = float(orig.wcs.get_step(unit="arcsec")[0])
+            models = read_fsf_from_header(hdr, pixstep=step_arc)
             lbda = wave.coord()
-            fwhm_fsf = np.asarray(fsfmodel.get_fwhm(lbda), np.float32)
-            beta_fsf = fsfmodel.get_beta(lbda)
+            if isinstance(models, list):
+                xy = {int(r["ID"]): (r["y"], r["x"]) for r in cat}
+                fsf_of = {sid: tuple(field_weights(orig.wfields, *xy[sid]))
+                          for sid in meta}
+                fsfs = {key: combine_fsf(models, key)
+                        for key in set(fsf_of.values())}
+            else:
+                fsfs = {None: models}
 
-            def wcube_fn(m):
+            def wcube_fn(m, key):
+                fsf = fsfs[key]
                 return _moffat_weight_cube(
-                    m, m, float(step_arc), fwhm_fsf, beta_fsf
-                )
+                    m, m, step_arc,
+                    np.asarray(fsf.get_fwhm(lbda), np.float32),
+                    fsf.get_beta(lbda))
 
         for sid, (m, y0, x0, objm, skym, zjobs, _comp) in meta.items():
-            jobs_by_size.setdefault(m, []).append(dict(
+            jobs_by_size.setdefault((m, fsf_of.get(sid)), []).append(dict(
                 key=sid, y0=y0, x0=x0, objm=objm, skym=skym,
                 lines=[(num, line_images_pre[(sid, num)])
                        for num, _z1, _z2 in zjobs

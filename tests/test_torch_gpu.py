@@ -976,3 +976,101 @@ def test_cuda_release_mid_stream_leaves_no_pending_copy(cuda):
     assert eng._staged is None and staged.stream.query()
     torch.testing.assert_close(staged.raw["data"][:48].cpu(),
                                torch.from_numpy(host[:48]), rtol=0, atol=0)
+
+
+# -- the system's configurations: field-map weights and the 20 profiles ------
+def _quadrant_weights(nfields, ny, nx):
+    """``FieldsMap.compute_weights`` of a field map cut into ``nfields``
+    blocks (halves for 2, quadrants for 4), as a session builds them."""
+    from origin_tpu_torch.core import FieldsMap
+
+    fmap = np.zeros((ny, nx), np.int64)
+    if nfields == 2:
+        fmap[:, :nx // 2], fmap[:, nx // 2:] = 1, 2
+    else:
+        for f, (ys, xs) in enumerate(
+                ((slice(0, ny // 2), slice(0, nx // 2)),
+                 (slice(0, ny // 2), slice(nx // 2, nx)),
+                 (slice(ny // 2, ny), slice(0, nx // 2)),
+                 (slice(ny // 2, ny), slice(nx // 2, nx))), start=1):
+            fmap[ys, xs] = f
+    return FieldsMap(data=fmap, nfields=nfields).compute_weights()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+@pytest.mark.parametrize("nfields", [2, 4])
+def test_cuda_spatial_field_map_weights_match_plain(cuda, nfields,
+                                                    precision):
+    """The spatial kernel with the 0/1 weight maps of a field map, one
+    field's FSF each (fwhm offset per field), at the field's width: one
+    launch per field, the plain version's values at atol 1e-5."""
+    nz, ny, nx, psf = 24, 100, 200, 25
+    rng = np.random.default_rng(5)
+    lbda = 4750 + 1.25 * np.arange(nz)
+    psfs = np.stack([MoffatFSF(fwhm_pol=[-0.2, 0.64 + 0.04 * f],
+                               beta_pol=[2.6 + 0.1 * f]).get_3darray(
+        lbda, (psf, psf)) for f in range(nfields)]).astype(np.float32)
+    wmaps = torch.from_numpy(np.stack(_quadrant_weights(nfields, ny, nx))
+                             .astype(np.float32)).to(cuda)
+    fshape2 = fft2_shape((ny, nx), (psf, psf))
+    kern_hats, _ = glr.precompute_spatial(torch.from_numpy(psfs).to(cuda),
+                                          wmaps, ny, nx, fshape2)
+    factors = {k: torch.from_numpy(v).to(cuda) for k, v in
+               glr.dft_spatial_factors(ny, nx, fshape2, (psf, psf)).items()}
+    cube = torch.from_numpy(rng.normal(size=(nz, ny, nx)).astype(
+        np.float32)).to(cuda)
+    args = (cube, kern_hats.real.contiguous(), kern_hats.imag.contiguous(),
+            wmaps, factors)
+    before = spatial_fsf.launches
+    out = spatial_fsf(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert spatial_fsf.launches == before + nfields
+    ref = glr.glr_spatial_matmul(*args, precision=precision)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+def test_cuda_tglr_with_the_20_profiles_matches_plain(cuda, tmp_path,
+                                                      monkeypatch, precision):
+    """``TorchEngine.tglr`` of a minicube session with ``Dico_FWHM_2_12``
+    launches the precision's sweep kernel once; its outputs hold the plain
+    sweep's on the same inputs (the module's sweep tolerances) and the
+    profile cube is uint8 below 20."""
+    from origin_tpu_torch.pipeline import engine as tengine
+    from origin_tpu_torch.pipeline.session import ORIGIN
+    from tools_torch.synthetic import make_minicube
+
+    cube_fn = str(tmp_path / "mini.fits")
+    make_minicube(cube_fn, nz=300, ny=40, nx=40)
+    monkeypatch.setenv("ORIGIN_TPU_PRECISION", precision)
+    orig = ORIGIN.init(cube_fn, name="k20", path=str(tmp_path),
+                       loglevel="WARNING", device="cuda",
+                       profiles=DICO_FWHM_2_12)
+    orig.step01_preprocessing()
+    orig.step02_areas(minsize=20, maxsize=40)
+    orig.step03_compute_PCA_threshold()
+    orig.step04_compute_greedy_PCA()
+    sweeps = []
+
+    def recorder(*args, **kw):
+        out = spectral_sweep(*args, **kw)
+        sweeps.append((args, kw, tuple(o.clone() for o in out)))
+        return out
+
+    spectral_sweep.launches = spectral_sweep.launches_bf16x3 = 0
+    with monkeypatch.context() as mp:
+        mp.setattr(tengine, "spectral_sweep", recorder)
+        dev, _ = orig.engine.tglr(orig.PSF, orig.wfields, orig.profiles)
+    orig.close_logfile()
+    assert (spectral_sweep.launches, spectral_sweep.launches_bf16x3) == (
+        (1, 0) if precision == "highest" else (0, 1))
+    [(args, kw, (c, p, m))] = sweeps
+    assert args[2].shape[0] == 20 and kw["precision"] == precision
+    cr, pr, mr = glr.toeplitz_sweep(*args, **kw)
+    torch.testing.assert_close(c, cr, atol=1e-5, rtol=1e-5, equal_nan=True)
+    torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5, equal_nan=True)
+    _assert_ties(p, pr, *args[:5], precision)
+    assert dev["cube_profile"].dtype == torch.uint8
+    assert int(dev["cube_profile"].max()) < 20

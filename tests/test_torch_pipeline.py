@@ -322,11 +322,11 @@ def test_step11_source_files_match_jax_full_budget(runs):
     assert_same_source_files(_sources(t), _sources(jf))
 
 
-def assert_same_source_files(ours, ref, skip_keys=()):
+def assert_same_source_files(ours, ref, skip_keys=(), count=13):
     """Source files of the port against the JAX package's, keyed by file
     name (tolerances in the module doc); header keywords in ``skip_keys``
-    are left out."""
-    assert list(ours) == list(ref) and len(ours) == 13
+    are left out; ``count`` files each (the minicube's 13)."""
+    assert list(ours) == list(ref) and len(ours) == count
     for name, b in ref.items():
         a = ours[name]
         _assert_same_header(a.header, b.header, name, skip_keys)
