@@ -24,6 +24,7 @@ import logging
 
 import numpy as np
 
+from .. import tracing
 from ..core.containers import Image, cutout_window, cutout_wcs
 from ..detect.segmentation import detect_sources
 from ..ops.cutouts import line_max_images
@@ -173,9 +174,10 @@ def _single_pass(
             ((xx - xi) ** 2 + (yy - yi) ** 2) <= radius ** 2
         )
         if verbose:
-            Image(data=data, mask=msk, wcs=sub_wcs).write(
-                f"{out_dir}/S{source_id}_L{num_line}_step{step}_cor.fits"
-            )
+            with tracing.span("masks.write"):
+                Image(data=data, mask=msk, wcs=sub_wcs).write(
+                    f"{out_dir}/S{source_id}_L{num_line}_step{step}_cor.fits"
+                )
         source_mask |= line_mask
 
     sky_mask[source_mask] = 0
@@ -229,12 +231,13 @@ def _finalize_mask(
     if border and sub_wcs is not None:
         sub_wcs = sub_wcs[border:-border, border:-border]
 
-    Image(data=source_mask.astype(np.int64), wcs=sub_wcs).write(
-        f"{out_dir}/source-mask-%0.5d.fits" % source_id
-    )
-    Image(data=sky_mask.astype(np.int64), wcs=sub_wcs).write(
-        f"{out_dir}/sky-mask-%0.5d.fits" % source_id
-    )
+    with tracing.span("masks.write"):
+        Image(data=source_mask.astype(np.int64), wcs=sub_wcs).write(
+            f"{out_dir}/source-mask-%0.5d.fits" % source_id
+        )
+        Image(data=sky_mask.astype(np.int64), wcs=sub_wcs).write(
+            f"{out_dir}/sky-mask-%0.5d.fits" % source_id
+        )
     if touch or not_enough_sky:
         return source_id
 

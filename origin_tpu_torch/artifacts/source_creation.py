@@ -22,6 +22,7 @@ from datetime import datetime
 
 import numpy as np
 
+from .. import tracing
 from ..core.containers import Cube, Image, Spectrum
 from ..core.fsf import field_weights
 from ..core.table import Table
@@ -326,11 +327,12 @@ def create_source(
         if num_line in spectra_hdus:
             source.spectra[f"ORI_SPEC_{num_line}"] = spectra_hdus[num_line]
 
-        source.add_narrow_band_image_lbdaobs(
-            data_cube, f"NB_LINE_{num_line}", lbda=lbda_ori,
-            width=nb_fwhm * fwhm_ori, method="sum", subtract_off=True,
-            margin=10.0, fband=3.0,
-        )
+        with tracing.span("sources.images"):
+            source.add_narrow_band_image_lbdaobs(
+                data_cube, f"NB_LINE_{num_line}", lbda=lbda_ori,
+                width=nb_fwhm * fwhm_ori, method="sum", subtract_off=True,
+                margin=10.0, fband=3.0,
+            )
         nb_par_rows.append(
             [f"NB_LINE_{num_line}", lbda_ori, nb_fwhm * fwhm_ori, 10.0, 3.0]
         )
@@ -342,10 +344,12 @@ def create_source(
                 data=pre_img, wcs=cube_ori.wcs, copy=False
             )
         else:
-            source.add_narrow_band_image_lbdaobs(
-                cube_ori, f"ORI_CORR_{num_line}", lbda=lbda_ori,
-                width=nb_fwhm * fwhm_ori, method="max", subtract_off=False,
-            )
+            with tracing.span("sources.images"):
+                source.add_narrow_band_image_lbdaobs(
+                    cube_ori, f"ORI_CORR_{num_line}", lbda=lbda_ori,
+                    width=nb_fwhm * fwhm_ori, method="max",
+                    subtract_off=False,
+                )
         corr_tags.append(f"ORI_CORR_{num_line}")
 
     if spectra_pre is not None:
@@ -382,7 +386,8 @@ def create_source(
 
 
     if save_to is not None:
-        source.write(save_to)
+        with tracing.span("sources.write"):
+            source.write(save_to)
     else:
         return source
 
@@ -452,13 +457,14 @@ def create_all_sources(
     if cube_std is None and 1 in comps.values():
         cube_std = load_cube(cube_std_filename, lazy=True)
 
-    def _precut(cube, source_id, size):
+    def _precut(cube, source_id, size, kind):
         k = int(np.where(np.asarray(cat3_sources["ID"]) == source_id)[0][0])
         info = cat3_sources[k]
-        sub = cube.subcube(
-            center=(float(info["dec"]), float(info["ra"])), size=size,
-            unit_center="deg",
-        )
+        with tracing.span("sources.cutouts", cube=kind):
+            sub = cube.subcube(
+                center=(float(info["dec"]), float(info["ra"])), size=size,
+                unit_center="deg",
+            )
         header = getattr(cube, "primary_header", None)
         if header is not None:
             sub.primary_header = header.copy()
@@ -492,8 +498,8 @@ def create_all_sources(
             nb_fwhm=nb_fwhm,
             expmap_filename=expmap_filename,
             save_to=out_tpl % source_id,
-            data_cube=_precut(data_cube, source_id, mask_size),
-            cube_ori=_precut(ori, source_id, mask_size),
+            data_cube=_precut(data_cube, source_id, mask_size, "raw"),
+            cube_ori=_precut(ori, source_id, mask_size, "detection"),
             spectra_pre=(spectra_pre or {}).get(source_id),
             line_images_pre=line_imgs,
             wfields=wfields,
@@ -502,7 +508,9 @@ def create_all_sources(
     ids = progressbar(ids, desc="sources", leave=False)
     if n_jobs == 1:
         for source_id in ids:
-            create_source(**_job(source_id))
+            job = _job(source_id)
+            with tracing.span("sources.build"):
+                create_source(**job)
         return
     # the cutouts are cut here, one source after the other (device
     # gathers stay on this thread); the workers build and write the files

@@ -26,6 +26,7 @@ import contextlib
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from .dct import dctmat
 from .pca import rank1_left_vectors
@@ -279,24 +280,26 @@ def estimation_line_arrays(x0, y0, z0, raw, var, psf, weights=None,
           else contextlib.nullcontext()):
         for i0 in range(0, n, batch):
             ii = slice(i0, min(n, i0 + batch))
-            xs, ys, zs = idx(x0, ii), idx(y0, ii), idx(z0, ii)
-            if engine is not None:
-                wins = engine.minicubes(xs, ys, sg, wmaps)
-            else:
-                wins = (gather_windows(raw, ys, xs, sg, 0.0),
-                        gather_windows(var, ys, xs, sg, torch.inf))
-                if wmaps is not None:
-                    wins += (gather_windows(wmaps, ys, xs, sg, 0.0),)
-            out = grid_analysis_batch(
-                wins[0], wins[1], zs, ys, xs, psf_t,
-                wins[2] if wmaps is not None else None, d0, ny, nx,
-                size_grid=g, criteria=criteria, horiz=horiz,
-                horiz_psf=horiz_psf)
-            del wins
-            for k in _KEYS:
-                v = out[k]
-                if k in ("y", "x", "z"):
-                    v = v.to(torch.int32)  # the JAX package's index dtype
-                results[k].append(v.cpu().numpy())
+            tracing.count("lines.lines", ii.stop - i0)
+            with tracing.span("lines.chunk", lines=ii.stop - i0):
+                xs, ys, zs = idx(x0, ii), idx(y0, ii), idx(z0, ii)
+                if engine is not None:
+                    wins = engine.minicubes(xs, ys, sg, wmaps)
+                else:
+                    wins = (gather_windows(raw, ys, xs, sg, 0.0),
+                            gather_windows(var, ys, xs, sg, torch.inf))
+                    if wmaps is not None:
+                        wins += (gather_windows(wmaps, ys, xs, sg, 0.0),)
+                out = grid_analysis_batch(
+                    wins[0], wins[1], zs, ys, xs, psf_t,
+                    wins[2] if wmaps is not None else None, d0, ny, nx,
+                    size_grid=g, criteria=criteria, horiz=horiz,
+                    horiz_psf=horiz_psf)
+                del wins
+                for k in _KEYS:
+                    v = out[k]
+                    if k in ("y", "x", "z"):
+                        v = v.to(torch.int32)  # the JAX package's index dtype
+                    results[k].append(v.cpu().numpy())
     return {k: np.concatenate(v) if n else np.empty(0)
             for k, v in results.items()}

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from .stats import compute_thresh_gaussfit
 
@@ -92,43 +93,48 @@ def greedy_pca(cube, valid, test0, thres, noise_population=50.0, itermax=100,
         c_mat = torch.zeros((itermax, npix), dtype=cube.dtype, device=dev)
     arange = torch.arange(npix, dtype=torch.int32, device=dev)
     nbiter = 0
-    while True:
-        pypx = (test > thres) & valid
-        npyp = int(pypx.sum())  # the one host sync of a greedy iteration
-        if npyp == 0:
-            break
+    pypx = (test > thres) & valid
+    npyp = int(pypx.sum())  # the one host sync of a greedy iteration
+    while npyp:
         nbiter += 1
         mapo2 += pypx.to(torch.int32)
+        tracing.count("greedy.iterations")
+        tracing.count("greedy.nuisance_columns", npyp)
+        tracing.count("greedy.area_columns", npix)
         if nbiter > itermax:
             nstop += 1
             break
         if npyp == 1:  # the reference bails out before the SVD here
             break
 
-        # background signature: mean of the nb faintest passing spectra
-        passing = valid & (test > 0) & (test <= thres)
-        npass = passing.sum()
-        nb = 1 + (npass / noise_population).to(torch.int32)
-        key = torch.where(passing, test, float("inf"))
-        order = torch.argsort(key, stable=True)
-        ranks = torch.empty(npix, dtype=torch.int32, device=dev)
-        ranks[order] = arange
-        w = ((ranks < nb) & passing).to(faint.dtype)
-        b = (faint @ w) / torch.clamp(torch.sum(w), min=1.0)
+        with tracing.span("greedy.iteration"):
+            # background signature: mean of the nb faintest passing spectra
+            passing = valid & (test > 0) & (test <= thres)
+            npass = passing.sum()
+            nb = 1 + (npass / noise_population).to(torch.int32)
+            key = torch.where(passing, test, float("inf"))
+            order = torch.argsort(key, stable=True)
+            ranks = torch.empty(npix, dtype=torch.int32, device=dev)
+            ranks[order] = arange
+            w = ((ranks < nb) & passing).to(faint.dtype)
+            b = (faint @ w) / torch.clamp(torch.sum(w), min=1.0)
 
-        # nuisance block, orthogonalized against the background signature
-        xr = torch.where(pypx[None, :], faint, 0.0)
-        xr = xr - torch.outer(b, b @ xr)
-        xr = xr / torch.sum(b * b)
+            # nuisance block, orthogonalized against the background
+            # signature
+            xr = torch.where(pypx[None, :], faint, 0.0)
+            xr = xr - torch.outer(b, b @ xr)
+            xr = xr / torch.sum(b * b)
 
-        u = rank1_left_vector(xr)
-        del xr
-        c = u @ faint
-        faint = faint - torch.outer(u, c)
-        test = torch.where(valid, torch.mean(faint * faint, dim=0), 0.0)
-        if record_factors:
-            u_mat[:, nbiter - 1] = u
-            c_mat[nbiter - 1] = c
+            u = rank1_left_vector(xr)
+            del xr
+            c = u @ faint
+            faint = faint - torch.outer(u, c)
+            test = torch.where(valid, torch.mean(faint * faint, dim=0), 0.0)
+            if record_factors:
+                u_mat[:, nbiter - 1] = u
+                c_mat[nbiter - 1] = c
+            pypx = (test > thres) & valid
+            npyp = int(pypx.sum())
     if record_factors:
         return faint, mapo2, nstop, u_mat, c_mat
     return faint, mapo2, nstop
@@ -159,16 +165,19 @@ def greedy_pca_areas(flat, areamap, thresholds, testO2,
         (idx,) = np.nonzero((areamap == area).ravel())
         if idx.size == 0:
             continue
-        didx = torch.from_numpy(idx.astype(np.int64)).to(dev)
-        out = greedy_pca(
-            flat[:, didx], torch.ones(idx.size, dtype=torch.bool, device=dev),
-            torch.from_numpy(np.asarray(testO2[area - 1], np.float32)).to(dev),
-            float(thresholds[area - 1]),
-            noise_population=float(noise_population), itermax=int(itermax),
-            record_factors=record_factors,
-        )
-        flat[:, didx] = out[0]
-        mapO2.ravel()[idx] = out[1].cpu().numpy()
+        with tracing.span("greedy.area", area=area, columns=int(idx.size)):
+            didx = torch.from_numpy(idx.astype(np.int64)).to(dev)
+            out = greedy_pca(
+                flat[:, didx],
+                torch.ones(idx.size, dtype=torch.bool, device=dev),
+                torch.from_numpy(np.asarray(testO2[area - 1],
+                                            np.float32)).to(dev),
+                float(thresholds[area - 1]),
+                noise_population=float(noise_population),
+                itermax=int(itermax), record_factors=record_factors,
+            )
+            flat[:, didx] = out[0]
+            mapO2.ravel()[idx] = out[1].cpu().numpy()
         nstop += int(out[2])
         if record_factors:
             u_mat, c_mat = (t.cpu().numpy() for t in out[3:])

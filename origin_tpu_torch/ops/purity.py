@@ -17,6 +17,7 @@ import logging
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.table import Table
 from ..device import resolve_device
 
@@ -219,21 +220,21 @@ def compute_threshold_purity_pair(
     segmask = np.asarray(segmap) == 0
     l0 = float(np.count_nonzero(segmask))
     logger.info("using only background pixels (%.1f%%)", l0 / l1 * 100)
-    segmask = torch.as_tensor(segmask, dtype=torch.float32, device=dev)
-
-    if threshlist is None:
-        th_c, n1_c, n0_c, th_s, n1_s, n0_s = _host(_fused_pair_auto(
-            cube_local_max, cube_local_min, segmask,
-            cube_std_local_max, cube_std_local_min,
-        ))
-        th_c, th_s = np.asarray(th_c, float), np.asarray(th_s, float)
-    else:
-        th_c = th_s = np.sort(np.asarray(threshlist, dtype=float))
-        th = torch.as_tensor(th_c, dtype=torch.float32, device=dev)
-        n1_c, n0_c, n1_s, n0_s = _host(_fused_pair_given(
-            cube_local_max, cube_local_min, segmask,
-            cube_std_local_max, cube_std_local_min, th,
-        ))
+    with tracing.span("purity.counts"):
+        segmask = torch.as_tensor(segmask, dtype=torch.float32, device=dev)
+        if threshlist is None:
+            th_c, n1_c, n0_c, th_s, n1_s, n0_s = _host(_fused_pair_auto(
+                cube_local_max, cube_local_min, segmask,
+                cube_std_local_max, cube_std_local_min,
+            ))
+            th_c, th_s = np.asarray(th_c, float), np.asarray(th_s, float)
+        else:
+            th_c = th_s = np.sort(np.asarray(threshlist, dtype=float))
+            th = torch.as_tensor(th_c, dtype=torch.float32, device=dev)
+            n1_c, n0_c, n1_s, n0_s = _host(_fused_pair_given(
+                cube_local_max, cube_local_min, segmask,
+                cube_std_local_max, cube_std_local_min, th,
+            ))
 
     threshold, pval = _purity_table(purity, th_c, n1_c, n0_c, l0, l1)
     threshold_std, pval_comp = _purity_table(

@@ -44,6 +44,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.containers import Cube
 from ..device import resolve_device, set_precision
 from ..ops.convolve import fft2_shape
@@ -428,7 +429,8 @@ class TorchEngine:
         up, each = self._upload_cube, self._each
         staged, self._staged = self._staged, None
         if staged is not None:
-            raws = staged.join()
+            with tracing.span("preprocess.join"):
+                raws = staged.join()
             missing = [n for n in ("cube", "var", "mask")
                        if n not in self._inputs]
         elif c.mask is not None:
@@ -598,14 +600,16 @@ class TorchEngine:
         allocator's cached blocks are then returned, so the next field
         starts with the card's memory.
         """
-        if self._staged is not None:
-            self._staged.synchronize()
-            self._staged = None
-        self._inputs.clear()
-        for step in self.orig.steps.values():
-            step.store.release(self.orig.outpath)
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
+        with tracing.span("engine.release",
+                          field=getattr(self.orig, "trace_field", None)):
+            if self._staged is not None:
+                self._staged.synchronize()
+                self._staged = None
+            self._inputs.clear()
+            for step in self.orig.steps.values():
+                step.store.release(self.orig.outpath)
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
 
     # -- step 01 -----------------------------------------------------------
     def preprocess(self, dct_order=10, dct_approx=False, local_max_size=3):

@@ -24,7 +24,7 @@ import os
 
 import numpy as np
 
-from .. import fitsio
+from .. import fitsio, tracing
 from ..core.containers import Cube
 from ..core.coords import WCS, WaveCoord
 
@@ -131,17 +131,18 @@ class IngestPlan:
         variance, the mask the data's non-finite pattern (stamped, so
         ``masked_invalid`` serves it without a scan).
         """
-        with open(self.filename, "rb") as fh:
+        with tracing.span("ingest.decode"), open(self.filename, "rb") as fh:
             data = self._read_payload(fh, self._data_idx, upload_data)
             var = None
             if self._stat_idx is not None:
                 var = self._read_payload(fh, self._stat_idx, upload_var)
 
-        m = ~np.isfinite(data)
-        # mask=False: no mask, without a second scan of the data
-        cube = Cube(data=data, var=var, mask=m if m.any() else False,
-                    copy=False)
-        cube._stamp_nonfinite_mask()
+        with tracing.span("ingest.nonfinite"):
+            m = ~np.isfinite(data)
+            # mask=False: no mask, without a second scan of the data
+            cube = Cube(data=data, var=var, mask=m if m.any() else False,
+                        copy=False)
+            cube._stamp_nonfinite_mask()
         cube.filename = self.filename
         cube.primary_header = self._hdus[0][0]
         hdr = self._hdus[self._data_idx][0]

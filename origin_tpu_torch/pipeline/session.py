@@ -33,7 +33,7 @@ from logging.handlers import RotatingFileHandler
 
 import numpy as np
 
-from .. import fitsio
+from .. import fitsio, tracing
 from ..core.containers import Cube, Image
 from ..core.fsf import FieldsMap, read_fsf_from_header
 from ..core.profiles import (
@@ -108,10 +108,12 @@ class ORIGIN(PlotMixin):
         self.param["loglevel"] = loglevel
         # the JAX package's load reads it; the port logs without color
         self.param["logcolor"] = False
+        self.trace_field = tracing.new_field()
         try:
-            self._init_session(filename, device, fieldmap, profiles, PSF,
-                               LBDA_FWHM_PSF, FWHM_PSF, PSF_size, imawhite,
-                               wfields, fresh=param is None)
+            with tracing.step_span("init", device, field=self.trace_field):
+                self._init_session(filename, device, fieldmap, profiles,
+                                   PSF, LBDA_FWHM_PSF, FWHM_PSF, PSF_size,
+                                   imawhite, wfields, fresh=param is None)
         except Exception:
             self.close_logfile()
             raise
@@ -177,12 +179,15 @@ class ORIGIN(PlotMixin):
         self.param["profiles"] = profiles
         self.param["fieldmap"] = fieldmap
         self.param["PSF_size"] = PSF_size
-        self._read_fsf(
-            self.cube, fieldmap=fieldmap, wfields=wfields, PSF=PSF,
-            LBDA_FWHM_PSF=LBDA_FWHM_PSF, FWHM_PSF=FWHM_PSF, PSF_size=PSF_size,
-        )
+        with tracing.span("ingest.fsf"):
+            self._read_fsf(
+                self.cube, fieldmap=fieldmap, wfields=wfields, PSF=PSF,
+                LBDA_FWHM_PSF=LBDA_FWHM_PSF, FWHM_PSF=FWHM_PSF,
+                PSF_size=PSF_size,
+            )
 
-        self.ima_white = imawhite if imawhite else self.cube.mean(axis=0)
+        with tracing.span("ingest.white"):
+            self.ima_white = imawhite if imawhite else self.cube.mean(axis=0)
         self.testO2, self.histO2, self.binO2 = None, None, None
         self._o2_files_stale = True
         self.logger.info("Step 00 finished")
@@ -364,6 +369,10 @@ class ORIGIN(PlotMixin):
         :func:`.compat.export_reference_session`); the session itself is
         not moved.
         """
+        with tracing.span("session.write", field=self.trace_field):
+            return self._write(path, erase, compat)
+
+    def _write(self, path, erase, compat):
         if compat is not None:
             if compat != "reference":
                 raise ValueError(f"unknown compat dialect: {compat!r}")

@@ -20,7 +20,6 @@ import inspect
 import logging
 import os
 import shutil
-import time
 from collections import OrderedDict
 from datetime import datetime
 from enum import Enum, auto
@@ -29,6 +28,7 @@ import numpy as np
 import torch
 from scipy import ndimage as ndi
 
+from .. import tracing
 from ..artifacts.masks import _fetch_line_images, create_masks
 from ..artifacts.source import _moffat_weight_cube
 from ..artifacts.source_creation import create_all_sources
@@ -200,16 +200,20 @@ class Step:
 
     def __call__(self, *args, **kwargs):
         self.logger.info("Step %02d - %s", self.idx, self.desc)
-        self._t0 = t0 = time.perf_counter()
-        self._record_params(args, kwargs)
-        self._check_dependencies()
-        try:
-            self.run(self.orig, *args, **kwargs)
-        except Exception:
-            self.status = Status.FAILED
-            raise
+        engine = getattr(self.orig, "engine", None)
+        with tracing.step_span(
+                f"step{self.idx:02d}", getattr(engine, "device", None),
+                field=getattr(self.orig, "trace_field", None)) as span:
+            self._span = span
+            self._record_params(args, kwargs)
+            self._check_dependencies()
+            try:
+                self.run(self.orig, *args, **kwargs)
+            except Exception:
+                self.status = Status.FAILED
+                raise
         self.status = Status.RUN
-        self.meta["runtime"] = elapsed = time.perf_counter() - t0
+        self.meta["runtime"] = elapsed = span.elapsed_s
         self.meta["execution_date"] = datetime.now().isoformat()
         self.logger.info("Step %02d finished (%.2f s)", self.idx, elapsed)
 
@@ -281,8 +285,9 @@ class Preprocessing(Step):
                 orig.shape[0], dct_order + 1,
             )
         info("DCT + standardization + local extrema (on device)")
-        dev, host = orig.engine.preprocess(dct_order, dct_approx,
-                                           local_max_size)
+        with tracing.span("preprocess.device"):
+            dev, host = orig.engine.preprocess(dct_order, dct_approx,
+                                               local_max_size)
         payload = (host["coef"], host["mean_z"], dct_order)
         for name in ("cube_std", "cube_std_local_max", "cube_std_local_min",
                      "cont_dct"):
@@ -294,25 +299,27 @@ class Preprocessing(Step):
         self.store_image("ima_dct", host["ima_dct"])
         info("cube_std / cont_dct and their images ready")
 
-        mean_fwhm = int(np.ceil(np.mean(orig.FWHM_PSF)))
+        with tracing.span("preprocess.segmentation"):
+            mean_fwhm = int(np.ceil(np.mean(orig.FWHM_PSF)))
 
-        with np.errstate(divide="ignore"):
-            map1 = np.log10(host["cont_sumsq"])
-        thresh, map_cont = compute_segmap_gauss(map1, pfasegcont, mean_fwhm,
-                                                bins=bins)
-        info("continuum segmentation: %d regions at threshold %.2f",
-             len(np.unique(map_cont)) - 1, thresh)
-        self.store_image("segmap_cont", map_cont)
+            with np.errstate(divide="ignore"):
+                map1 = np.log10(host["cont_sumsq"])
+            thresh, map_cont = compute_segmap_gauss(
+                map1, pfasegcont, mean_fwhm, bins=bins)
+            info("continuum segmentation: %d regions at threshold %.2f",
+                 len(np.unique(map_cont)) - 1, thresh)
+            self.store_image("segmap_cont", map_cont)
 
-        map2 = host["o2"]
-        thresh, map_res = compute_segmap_gauss(map2, pfasegres, mean_fwhm,
-                                               bins=bins)
-        info("residual segmentation: %d regions at threshold %.2f",
-             len(np.unique(map_res)) - 1, thresh)
+            map2 = host["o2"]
+            thresh, map_res = compute_segmap_gauss(
+                map2, pfasegres, mean_fwhm, bins=bins)
+            info("residual segmentation: %d regions at threshold %.2f",
+                 len(np.unique(map_res)) - 1, thresh)
 
-        segmap, nlabels = ndi.label((map_cont > 0) | (map_res > 0))
-        info("segmap_merged ready (union of both maps, %d regions)", nlabels)
-        self.store_image("segmap_merged", segmap)
+            segmap, nlabels = ndi.label((map_cont > 0) | (map_res > 0))
+            info("segmap_merged ready (union of both maps, %d regions)",
+                 nlabels)
+            self.store_image("segmap_merged", segmap)
         # diagnostics-only product: off the device on a tight session
         orig.engine.maybe_offload("cont_dct")
 
@@ -508,10 +515,12 @@ class ComputePurityThreshold(Step):
             purity_std = purity
         orig.param.update(dict(purity=purity, purity_std=purity_std))
 
-        thresh, map_res = compute_segmap_gauss(
-            orig.maxmap.data, pfasegfinal, 0, bins=bins
-        )
-        segmap, _ = ndi.label((map_res > 0) | (orig.segmap_merged.data > 0))
+        with tracing.span("purity.segmap"):
+            thresh, map_res = compute_segmap_gauss(
+                orig.maxmap.data, pfasegfinal, 0, bins=bins
+            )
+            segmap, _ = ndi.label((map_res > 0)
+                                  | (orig.segmap_merged.data > 0))
         self.store_image("segmap_purity", segmap)
 
         eng = orig.engine
@@ -871,9 +880,10 @@ class SaveSources(Step):
         # every source's spectra, its lines' narrow-band max images and
         # its detection-cube stats, reduced on the device: the host then
         # skips ~10 cutout-sized passes per source
-        spectra_pre, line_images_pre = self._device_source_artifacts(
-            orig, nb_fwhm
-        )
+        with tracing.span("sources.device_rounds"):
+            spectra_pre, line_images_pre = self._device_source_artifacts(
+                orig, nb_fwhm
+            )
 
         # cube_std feeds only comp=1 (STD-detected) sources' ORI_SNCUBE
         # cutouts
@@ -914,8 +924,8 @@ class SaveSources(Step):
         # written session showing save_sources as NOTRUN on reload
         self.status = Status.RUN
         self.meta["execution_date"] = datetime.now().isoformat()
-        if getattr(self, "_t0", None) is not None:
-            self.meta["runtime"] = time.perf_counter() - self._t0
+        if getattr(self, "_span", None) is not None:
+            self.meta["runtime"] = self._span.elapsed_s
         orig.write()
 
     @staticmethod
