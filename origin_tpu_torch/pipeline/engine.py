@@ -19,9 +19,11 @@ file decodes (:meth:`TorchEngine.stream_inputs`, ``ingest.py``), or copied
 right after an eager read (:meth:`TorchEngine.prefetch_inputs`).  On CUDA
 the copies are staged through a ring of page-locked slab buffers
 (:class:`_SlabRing`) and run on a copy stream of their own; step 01 joins
-them.  The JAX engine's other transfer machinery (int16 and bit-packed
-wires, speculative and bucketed compaction) exists for a slow TPU host
-link and is not ported.
+them.  Float32 data is also reduced behind its copies, for the session's
+white image and the host cube's non-finite pattern
+(:meth:`TorchEngine.staged_white`).  The JAX engine's other transfer
+machinery (int16 and bit-packed wires, speculative and bucketed
+compaction) exists for a slow TPU host link and is not ported.
 
 A field whose working set (:attr:`TorchEngine.HEADROOM_CUBES` cubes) does
 not fit the device's memory budget (:func:`device_memory_fits`) runs in
@@ -182,19 +184,34 @@ class _StagedInputs:
     On CUDA the copies run on a stream of their own, which first waits on
     the allocating stream; :meth:`join` makes the current stream wait on
     it.  On the CPU the same path copies synchronously.
+
+    With ``white``, each data slab is also reduced on the device right
+    behind its copy, on the same stream: the sum of each spaxel's finite
+    values (float64) and their count (int32), from which the session's
+    white image is taken (:meth:`white_sums`), and by which the host
+    cube's non-finite pattern is copied back only where it is not empty
+    (:meth:`nonfinite_mask`): the host cube is not scanned.
     """
 
-    def __init__(self, device, shape, with_var):
+    def __init__(self, device, shape, with_var, white=False):
         self.stream = None
         if device.type == "cuda":
             self.stream = torch.cuda.Stream(device)
-            self.stream.wait_stream(torch.cuda.current_stream(device))
         kinds = ("data", "var") if with_var else ("data",)
         self.raw = {k: torch.empty(shape, dtype=torch.float32, device=device)
                     for k in kinds}
         self.filled = dict.fromkeys(kinds, 0)
+        self.white = white
+        self._sums = self._white_host = None
+        if white:
+            npix = int(np.prod(shape[1:]))
+            self._sums = (torch.zeros(npix, dtype=torch.float64,
+                                      device=device),
+                          torch.zeros(npix, dtype=torch.int32, device=device))
         if self.stream is not None:
-            for t in self.raw.values():
+            # after the allocating stream's work, the zero fills included
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+            for t in (*self.raw.values(), *(self._sums or ())):
                 # the allocator frees them only once their copies ran
                 t.record_stream(self.stream)
         self.ring = _slab_ring(pinned=self.stream is not None)
@@ -204,7 +221,75 @@ class _StagedInputs:
         z0 = self.filled[kind]
         z1 = z0 + len(slab)
         self.ring.copy(self.raw[kind][z0:z1], slab, self.stream)
+        if kind == "data" and self._sums is not None:
+            self._accumulate(self.raw["data"][z0:z1])
         self.filled[kind] = z1
+
+    def _on_stream(self):
+        """The copy stream made current (a no-op on the CPU)."""
+        return (contextlib.nullcontext() if self.stream is None
+                else torch.cuda.stream(self.stream))
+
+    def _accumulate(self, planes):
+        """Add the finite values of the (k, Ny, Nx) ``planes`` and their
+        count into the spaxels' sums, on the copy stream.
+
+        The pieces hold at most an eighth of a ring buffer's values, so
+        that the float64 cast of one, with its reduction, takes no more
+        than half a ring buffer's bytes, whatever the slab's size.
+        """
+        total, count = self._sums
+        flat = planes.reshape(len(planes), -1)
+        nz, npix = flat.shape
+        budget = max(1, self.ring.bufs[0].numel() // 8)
+        dz, dp = max(1, budget // npix), min(npix, budget)
+        with self._on_stream():
+            for z0 in range(0, nz, dz):
+                for p0 in range(0, npix, dp):
+                    piece = flat[z0:z0 + dz, p0:p0 + dp]
+                    count[p0:p0 + dp] += torch.isfinite(piece).sum(
+                        0, dtype=torch.int32)
+                    total[p0:p0 + dp] += piece.double().nan_to_num_(
+                        nan=0.0, posinf=0.0, neginf=0.0).sum(0)
+
+    def nonfinite_mask(self):
+        """The staged data's non-finite pattern: False where every
+        spaxel's finite count (:meth:`white_sums`) is Nz, else the host
+        bool array of the data's shape, copied back from the device in
+        pieces of at most a ring buffer's values.  Counts the spaxels that
+        hold a non-finite value (``ingest.flagged_spaxels``)."""
+        _, count = self.white_sums()
+        data = self.raw["data"]
+        nz = data.shape[0]
+        flagged = int((count < nz).sum())
+        tracing.count("ingest.flagged_spaxels", flagged)
+        if not flagged:
+            return False
+        out = np.empty(data.shape, bool)
+        host = torch.from_numpy(out)
+        dz = max(1, self.ring.bufs[0].numel() // count.size)
+        with self._on_stream():
+            for z0 in range(0, nz, dz):
+                host[z0:z0 + dz].copy_(~torch.isfinite(data[z0:z0 + dz]))
+        return out
+
+    def white_sums(self):
+        """``(sum, count)``: host (Ny, Nx) arrays of the sum of each
+        spaxel's finite data values (float64) and their count (int32),
+        fetched once; None without ``white``.  Waits for the copy
+        stream's work queued so far."""
+        if not self.white:
+            return None
+        if self._white_host is None:
+            nz, ny, nx = self.raw["data"].shape
+            if self.filled["data"] != nz:
+                raise RuntimeError(f"staged data holds {self.filled['data']}"
+                                   f" of {nz} planes")
+            with self._on_stream():
+                self._white_host = tuple(t.cpu().numpy().reshape(ny, nx)
+                                         for t in self._sums)
+            self._sums = None
+        return self._white_host
 
     def join(self):
         """``{"data": tensor, "var": tensor or None}``, handed over once,
@@ -387,11 +472,16 @@ class TorchEngine:
         IngestPlan`) and copy its raw data and variance to the device, slab
         by slab while the decode runs (:class:`_StagedInputs`); returns the
         host :class:`Cube`.  Step 01 joins the copies
-        (:meth:`_ensure_inputs`)."""
+        (:meth:`_ensure_inputs`).  A float32 payload is also reduced on the
+        device as it lands (:meth:`staged_white`), and the host cube's
+        non-finite pattern comes from the device's copy
+        (:meth:`_StagedInputs.nonfinite_mask`)."""
+        white = plan.dtype == np.float32
         staged = self._staged = _StagedInputs(self.device, plan.shape,
-                                              plan.has_var)
+                                              plan.has_var, white=white)
         return plan.read(upload_data=functools.partial(staged.put, "data"),
-                         upload_var=functools.partial(staged.put, "var"))
+                         upload_var=functools.partial(staged.put, "var"),
+                         nonfinite=staged.nonfinite_mask if white else None)
 
     def prefetch_inputs(self):
         """Start the copies of the session cube's raw data and variance to
@@ -406,11 +496,26 @@ class TorchEngine:
         if self._staged is not None or "cube" in self._inputs or (
                 c.mask is not None and not derived):
             return
-        staged = _StagedInputs(self.device, c.shape, c.var is not None)
+        staged = _StagedInputs(self.device, c.shape, c.var is not None,
+                               white=c.data.dtype == np.float32)
         staged.put("data", c.data)
         if c.var is not None:
             staged.put("var", c.var)
         self._staged = staged
+
+    def stages_white(self):
+        """Whether the staged inputs reduce their data for the white image
+        (:meth:`staged_white`)."""
+        return self._staged is not None and self._staged.white
+
+    def staged_white(self):
+        """``(sum, count)`` of each spaxel's finite data values
+        (:meth:`_StagedInputs.white_sums`) when the staged inputs reduced
+        their float32 data as it landed; None otherwise (inputs not staged,
+        or a float64 payload, whose float32 copy would change the
+        reduction)."""
+        staged = self._staged
+        return None if staged is None else staged.white_sums()
 
     def _ensure_inputs(self, *names):
         """Put the inputs ``names`` that are not on the device there.

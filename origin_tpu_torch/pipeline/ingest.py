@@ -9,6 +9,8 @@ scan`, no payload read), then decodes the DATA and STAT payloads in
 z-slabs and hands each float32 slab to a callback the moment it is
 byteswapped: :meth:`~origin_tpu_torch.pipeline.engine.TorchEngine.
 stream_inputs` copies it to the device while the next slab decodes.
+Where the device also reduced the slabs of a float32 payload, it hands
+back the data's non-finite pattern, and the host cube is not scanned.
 
 Only the plain raw-cube layout streams: a 3-D float32 or float64 DATA
 cube with an optional STAT cube of the same shape, no BSCALE / BZERO.
@@ -88,6 +90,12 @@ class IngestPlan:
         """Whether the file has a STAT cube."""
         return self._stat_idx is not None
 
+    @property
+    def dtype(self):
+        """The numpy dtype of the DATA payload (float32 or float64)."""
+        bitpix = int(self._hdus[self._data_idx][0]["BITPIX"])
+        return np.dtype(np.float32 if bitpix == -32 else np.float64)
+
     @classmethod
     def scan(cls, filename):
         """An IngestPlan for ``filename``, or None when the layout does
@@ -121,15 +129,19 @@ class IngestPlan:
                        else view.astype(np.float32))
         return out
 
-    def read(self, upload_data=None, upload_var=None):
+    def read(self, upload_data=None, upload_var=None, nonfinite=None):
         """Decode the cube, handing its slabs to the callbacks.
 
         ``upload_data`` / ``upload_var`` receive each float32 z-slab in
         order, right after its in-place byteswap, so that the copy of slab
-        k runs while slab k+1 decodes.  Returns the host :class:`Cube`,
-        with the content of ``Cube(filename)``: unfilled data and
-        variance, the mask the data's non-finite pattern (stamped, so
-        ``masked_invalid`` serves it without a scan).
+        k runs while slab k+1 decodes.  ``nonfinite``, called once the
+        payloads are decoded, returns the data's non-finite pattern as the
+        uploaded slabs hold it (a bool array of the cube's shape, or False
+        where every value is finite), in place of a scan of the host cube.
+        Returns the host :class:`Cube`, with the content of
+        ``Cube(filename)``: unfilled data and variance, the mask the
+        data's non-finite pattern (stamped, so ``masked_invalid`` serves
+        it without a scan).
         """
         with tracing.span("ingest.decode"), open(self.filename, "rb") as fh:
             data = self._read_payload(fh, self._data_idx, upload_data)
@@ -138,10 +150,13 @@ class IngestPlan:
                 var = self._read_payload(fh, self._stat_idx, upload_var)
 
         with tracing.span("ingest.nonfinite"):
-            m = ~np.isfinite(data)
+            if nonfinite is None:
+                m = ~np.isfinite(data)
+                m = m if m.any() else False
+            else:
+                m = nonfinite()
             # mask=False: no mask, without a second scan of the data
-            cube = Cube(data=data, var=var, mask=m if m.any() else False,
-                        copy=False)
+            cube = Cube(data=data, var=var, mask=m, copy=False)
             cube._stamp_nonfinite_mask()
         cube.filename = self.filename
         cube.primary_header = self._hdus[0][0]

@@ -15,7 +15,9 @@ reference package's dialect (its python-tagged parameter file) loads, and
 reporting methods (``info``, ``status``, ``timestat``, ``stat``) and the
 diagnostic plots (:class:`.plotting.PlotMixin`) are the JAX session's.
 A fresh single-device session given a file name streams its cube to the
-device while the file decodes (:mod:`.ingest`), as the JAX session does.
+device while the file decodes (:mod:`.ingest`), as the JAX session does,
+and takes its white image from the device's reduction of the staged
+float32 slabs.
 """
 
 from __future__ import annotations
@@ -69,6 +71,18 @@ def setup_logging(name=LOGGER_NAME, level="DEBUG", stream=None,
     handler.setFormatter(logging.Formatter(fmt))
     logger.addHandler(handler)
     return logger
+
+
+def _mean_image(total, count, wcs):
+    """The image ``Cube.mean(axis=0)`` gives of a cube whose mask is its
+    non-finite pattern, from the (Ny, Nx) sum of each spaxel's finite
+    values and their count: the mean as float32, NaN and masked where the
+    count is 0."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        data = (total / count).astype(np.float32)
+    mask = ~np.isfinite(data) | (count == 0)
+    return Image(data=data, mask=mask if mask.any() else None, wcs=wcs,
+                 copy=False)
 
 
 class ORIGIN(PlotMixin):
@@ -186,8 +200,18 @@ class ORIGIN(PlotMixin):
                 PSF_size=PSF_size,
             )
 
-        with tracing.span("ingest.white"):
-            self.ima_white = imawhite if imawhite else self.cube.mean(axis=0)
+        # the staged inputs' reduction gives the white image when they took
+        # one (float32 data staged at init); else the host masked mean
+        staged = not imawhite and self.engine.stages_white()
+        with tracing.span("ingest.white",
+                          route="staged" if staged else "host"):
+            if imawhite:
+                self.ima_white = imawhite
+            elif staged:
+                self.ima_white = _mean_image(*self.engine.staged_white(),
+                                             self.cube.wcs)
+            else:
+                self.ima_white = self.cube.mean(axis=0)
         self.testO2, self.histO2, self.binO2 = None, None, None
         self._o2_files_stale = True
         self.logger.info("Step 00 finished")

@@ -978,6 +978,84 @@ def test_cuda_release_mid_stream_leaves_no_pending_copy(cuda):
                                torch.from_numpy(host[:48]), rtol=0, atol=0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["streamed", "eager"])
+@pytest.mark.parametrize("pattern", ["finite", "nan_voxels", "inf_voxel",
+                                     "nan_spaxel", "nan_border"])
+def test_cuda_staged_white_matches_the_host_mean(cuda, tmp_path,
+                                                 monkeypatch, pattern, route):
+    """tests/test_torch_ingest.py's staged white image on the card: the
+    slabs through the pinned ring and the copy stream, streamed or put
+    whole after the eager read, reduced behind their copies; the white
+    image and the host cube held to the host route."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import ingest_cases
+    from origin_tpu_torch import tracing
+    from origin_tpu_torch.core.containers import Cube
+    from origin_tpu_torch.pipeline import ingest
+    from origin_tpu_torch.pipeline.session import ORIGIN
+
+    fn = ingest_cases.write_pattern(str(tmp_path / "p.fits"), pattern)
+    monkeypatch.setattr(ingest, "_SLAB_BYTES", 10 ** 5)
+    if route == "eager":
+        monkeypatch.setenv("ORIGIN_TPU_STREAM_INGEST", "0")
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        orig = ORIGIN.init(fn, name=route, device="cuda",
+                           path=str(tmp_path), loglevel="WARNING")
+    spans, counts = tracing.records()
+    tracing.clear()
+    staged = orig.engine._staged
+    assert staged is not None and staged.stream is not None
+    assert [s.attrs["route"] for s in spans
+            if s.name == "ingest.white"] == ["staged"]
+    data = Cube(fn).data
+    ingest_cases.check_white(orig.ima_white, orig.cube.mean(axis=0), data)
+    ingest_cases.check_cube_mask(orig.cube, data)
+    flagged = [c.n for c in counts if c.name == "ingest.flagged_spaxels"]
+    assert flagged == ([ingest_cases.flagged_spaxels(data)]
+                       if route == "streamed" else [])
+    orig.engine.release()
+    orig.close_logfile()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("whole", [False, True], ids=["slabs", "whole_cube"])
+def test_cuda_staged_white_adds_at_most_a_ring_buffer(cuda, whole):
+    """The reduction of the staged data, slab by slab or of one
+    whole-cube ``put`` (the eager route's), allocates at most one ring
+    buffer's bytes on the card beyond the inputs and the accumulators, and
+    sums and counts the finite values."""
+    import ingest_cases
+    from origin_tpu_torch.pipeline import engine as tengine
+
+    shape = (300, 120, 160)
+    host = np.random.default_rng(3).normal(size=shape).astype(np.float32)
+    host[:, 3, 4] = np.nan
+    host[7, 8, 9] = np.inf
+    staged = tengine._StagedInputs(cuda, shape, False, white=True)
+    ring = staged.ring = tengine._SlabRing(2 ** 20, pinned=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if whole:
+        staged.put("data", host)
+    else:
+        for z0 in range(0, shape[0], 7):
+            staged.put("data", host[z0:z0 + 7])
+    total, count = staged.white_sums()
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated() - base
+    assert 0 < added <= ring.bufs[0].numel() * 4, added
+    mean, n = ingest_cases.finite_mean(host)
+    np.testing.assert_array_equal(count, n)
+    ok = n > 0
+    np.testing.assert_allclose(total[ok] / n[ok], mean[ok], rtol=1e-12,
+                               atol=1e-15)
+    assert total[3, 4] == 0 and count[3, 4] == 0
+
+
 # -- the system's configurations: field-map weights and the 20 profiles ------
 def _quadrant_weights(nfields, ny, nx):
     """``FieldsMap.compute_weights`` of a field map cut into ``nfields``

@@ -12,6 +12,14 @@
   route's bit for bit, and a streamed minicube session gives the goldens.
 - ``run ... --overlap-ingest --device cpu`` gives the JAX CLI's catalogs,
   and each session's log holds only its own records.
+- The staged route's white image (the reduction of the staged float32
+  slabs), streamed and eager, on files with no non-finite value, NaN
+  voxels, infinities, an all-NaN spaxel and a NaN border: the host
+  ``cube.mean(axis=0)``'s mask bit for bit, data within 2 float32 ulp of
+  the float64 mean of the finite values; the host cube's mask
+  ``~isfinite`` bit for bit; the ``ingest.white`` span's ``route`` and the
+  ``ingest.flagged_spaxels`` counter.  A float64 payload, an in-memory
+  ``Cube``, a loaded session and a mesh session keep the host mean.
 
 The CUDA route (pinned staging on a copy stream) is held in
 tests/test_torch_gpu.py, which imports no JAX.
@@ -26,16 +34,20 @@ import numpy as np
 import pytest
 import torch
 
+from torch.profiler import ProfilerActivity, profile
+
+import ingest_cases
 import origin_tpu.fitsio as jfitsio
 import origin_tpu.pipeline.ingest as jingest
 from jax_full_budget import jax_full_budget
 from make_minicube import make_minicube, make_segmap
 from origin_tpu.__main__ import main as jax_main
 from origin_tpu.core import Table as JTable
-from origin_tpu_torch import fitsio
+from origin_tpu_torch import fitsio, tracing
 from origin_tpu_torch.__main__ import main
 from origin_tpu_torch.core import Table
 from origin_tpu_torch.core.containers import Cube
+from origin_tpu_torch.parallel.mesh import make_mesh
 from origin_tpu_torch.pipeline import engine as engine_mod
 from origin_tpu_torch.pipeline import ingest
 from origin_tpu_torch.pipeline.session import ORIGIN
@@ -347,6 +359,81 @@ def test_in_memory_and_loaded_sessions_stage_nothing(minicube, tmp_path):
     loaded = ORIGIN.load(orig.outpath, device="cpu")
     assert loaded.engine._staged is None
     loaded.close_logfile()
+
+
+def _traced(make):
+    """The session ``make()`` returns, made under a CPU profile, with its
+    ``ingest.white`` span's route and the ``ingest.flagged_spaxels``
+    counts it recorded."""
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        orig = make()
+    spans, counts = tracing.records()
+    tracing.clear()
+    (white,) = [s for s in spans if s.name == "ingest.white"]
+    flagged = [c.n for c in counts if c.name == "ingest.flagged_spaxels"]
+    return orig, white.attrs["route"], flagged
+
+
+@pytest.mark.parametrize("route", ["streamed", "eager"])
+@pytest.mark.parametrize("pattern", ingest_cases.PATTERNS)
+def test_staged_white_matches_the_host_mean(tmp_path, monkeypatch, pattern,
+                                            route):
+    """A float32 file staged at init, streamed in several slabs or put
+    whole after the eager read, takes the staged route: its white image
+    is the host mean's, and its host cube the eager read's.  The ring's
+    buffers are cut so that the reduction runs in several pieces: along z
+    (streamed) and across the spaxels too (eager)."""
+    fn = ingest_cases.write_pattern(str(tmp_path / "p.fits"), pattern)
+    ring = {"streamed": 10 ** 5, "eager": 8000}[route]
+    monkeypatch.setattr(ingest, "_SLAB_BYTES", ring)
+    monkeypatch.setattr(engine_mod, "_RINGS", {})
+    if route == "eager":
+        monkeypatch.setenv("ORIGIN_TPU_STREAM_INGEST", "0")
+    orig, got, flagged = _traced(lambda: ORIGIN.init(
+        fn, name=route, device="cpu", path=str(tmp_path),
+        loglevel="WARNING"))
+    assert _reader(orig) == route and got == "staged"
+    data = Cube(fn).data
+    ingest_cases.check_white(orig.ima_white, orig.cube.mean(axis=0), data)
+    ingest_cases.check_cube_mask(orig.cube, data)
+    np.testing.assert_array_equal(orig.cube.data, data)
+    # the streamed read builds its mask from the counts; the eager one
+    # scanned the cube in Cube(fn)
+    want = [ingest_cases.flagged_spaxels(data)]
+    assert flagged == (want if route == "streamed" else [])
+    orig.close_logfile()
+
+
+@pytest.mark.parametrize("case", ["float64", "in_memory", "loaded", "mesh"])
+def test_host_routes_keep_the_host_mean(tmp_path, case):
+    """Where nothing staged float32 data at init, the white image is the
+    host ``Cube.mean(axis=0)`` of today, exactly."""
+    bitpix = -64 if case == "float64" else -32
+    fn = ingest_cases.write_pattern(str(tmp_path / "p.fits"), "nan_spaxel",
+                                    bitpix=bitpix)
+    kw = dict(device="cpu", path=str(tmp_path), loglevel="WARNING")
+    want = Cube(fn).mean(axis=0)
+    if case == "loaded":
+        first = ORIGIN.init(Cube(fn), name="first", **kw)
+        first.step01_preprocessing()
+        first.write()
+        first.close_logfile()
+
+        def make():
+            return ORIGIN.load(first.outpath, device="cpu")
+    else:
+        cube = Cube(fn) if case == "in_memory" else fn
+        mesh = make_mesh(devices=["cpu"] * 2) if case == "mesh" else None
+
+        def make():
+            return ORIGIN.init(cube, name=case, mesh=mesh, **kw)
+    orig, route, flagged = _traced(make)
+    assert route == "host" and flagged == []
+    assert orig.ima_white.data.dtype == want.data.dtype
+    np.testing.assert_array_equal(orig.ima_white.data, want.data)
+    np.testing.assert_array_equal(orig.ima_white.mask, want.mask)
+    orig.close_logfile()
 
 
 def test_streamed_minicube_session_gives_the_goldens(minicube, tmp_path,
