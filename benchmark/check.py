@@ -16,7 +16,9 @@ computes from the same inputs (a widest gap, or a count of rows, lines or
 pixels that differ); the limits are in the configuration's file.  The
 control is the same reference in float32 with TF32 matrix products, put
 in the program's place in the numerical stages.  Each stage is compared
-on the device as soon as it is computed, and freed.
+on the device as soon as it is computed, and freed.  A mosaic's steps 05
+and 08 are held to the reference's sums over its fields' FSFs, weighted
+by maps made from the configuration's rectangles, not the program's.
 """
 
 import math
@@ -271,6 +273,9 @@ def readings(prog, inputs, device, control=False):
     (``run.reference_inputs``)."""
     dev = torch.device(device)
     raw, var, psf = (inputs[k].to(dev) for k in ("raw", "var", "psf"))
+    weights = inputs.get("weights")
+    if weights is not None:
+        weights = weights.to(dev)
     mask = ~torch.isfinite(raw)
     keep = ~mask
     p, c = {}, {} if control else None
@@ -320,7 +325,7 @@ def readings(prog, inputs, device, control=False):
     # step 05, from the program's cube_faint
     faint = prog["cube_faint"].to(dev)
     want, ctl = stage(lambda dt: ref.glr(faint, mask, psf, inputs["profiles"],
-                                         dt))
+                                         dt, weights=weights))
     del faint
 
     def correl_gap(g, w):
@@ -372,7 +377,7 @@ def readings(prog, inputs, device, control=False):
     pos = (cat2["x0"], cat2["y0"], cat2["z0"], cat2["profile"],
            inputs["spectrum_radius"])
     want, ctl = stage(lambda dt: ref.deconvolved_lines(
-        raw, var, psf, cat2["x0"], cat2["y0"], dt))
+        raw, var, psf, cat2["x0"], cat2["y0"], dt, weights=weights))
     del raw, var
     want = tuple(t.cpu().double().numpy() for t in want)
     p.update(line_numbers(cat2, prog["spectra"], *want, *pos))

@@ -32,7 +32,7 @@ def main(argv=None, device="cuda", root=ROOT):
     sys.path.insert(0, root)
     import torch
 
-    from benchmark import check, field, fitsfile, run, spec
+    from benchmark import check, run, spec
     from benchmark.trace import Spans
 
     bench = spec.load(root)
@@ -48,12 +48,9 @@ def main(argv=None, device="cuda", root=ROOT):
         shutil.rmtree(workdir, ignore_errors=True)
         os.makedirs(workdir)
         t0 = time.perf_counter()
-        data, var, _ = field.make_field(config, traffic, seed, device)
-        fitsfile.write_cube(os.path.join(workdir, "field.fits"), data, var,
-                            config["geometry"], config["fsf"])
-        del data, var
         survey = run.Survey(config, workdir, Spans(False, sync), device,
                             root)
+        survey.write(traffic, seed)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         orig = survey.field()

@@ -8,6 +8,12 @@ a peak of 1), and one column of NaN spaxels.  Every seed gives the same
 numbers of sources and lines; the seed draws where they lie, how bright
 and how wide.  Everything is float32 on the device except the FSF
 evaluation (float64, cast once).
+
+A mosaic configuration (``fields``: one FSF model per field, ``fieldmap``:
+the rectangle ``[y0, y1, x0, x1]`` each field covers) is seen through the
+FSF of the field that covers each pixel: a line's stamp takes, pixel by
+pixel, the spot of its field.  The draws and their order are those of a
+single field.
 """
 
 import math
@@ -43,6 +49,45 @@ def wavelengths(config, device):
     nz = config["shape"][0]
     return (float(g["crval_wave"]) + float(g["cdelt_wave"])
             * torch.arange(nz, dtype=torch.float64, device=device))
+
+
+def fsf_models(config):
+    """The FSF model of each field: the configuration's ``fsf``, or one
+    per entry of a mosaic's ``fields``, on ``fsf``'s wavelength range."""
+    fsf = config["fsf"]
+    return ([dict(fsf, **f) for f in config["fields"]]
+            if "fields" in config else [fsf])
+
+
+def field_index(config, device):
+    """(Ny, Nx) int64: the field that covers each pixel, 0 everywhere
+    without a ``fieldmap``, else from a mosaic's rectangles ``[y0, y1, x0,
+    x1]`` (half open); raises unless there is one per FSF model and they
+    tile the field without overlap."""
+    _, ny, nx = config["shape"]
+    if "fieldmap" not in config:
+        return torch.zeros((ny, nx), dtype=torch.int64, device=device)
+    rects = config["fieldmap"]
+    if len(rects) != len(config["fields"]) or len(rects) < 2:
+        raise ValueError("a mosaic needs one fieldmap rectangle per field, "
+                         "and two fields or more")
+    index = torch.full((ny, nx), -1, dtype=torch.int64, device=device)
+    for f, (y0, y1, x0, x1) in enumerate(rects):
+        if not (0 <= y0 < y1 <= ny and 0 <= x0 < x1 <= nx) or bool(
+                (index[y0:y1, x0:x1] >= 0).any()):
+            raise ValueError(f"fieldmap rectangle {f} leaves the field or "
+                             "overlaps another")
+        index[y0:y1, x0:x1] = f
+    if bool((index < 0).any()):
+        raise ValueError("the fieldmap rectangles leave pixels uncovered")
+    return index
+
+
+def weight_maps(config, device, dtype=torch.float64):
+    """(F, Ny, Nx): 1 where field f covers a pixel, else 0."""
+    index = field_index(config, device)
+    return torch.stack([(index == f).to(dtype)
+                        for f in range(len(config["fields"]))])
 
 
 def _uniform(gen, n, lo_hi, device):
@@ -89,9 +134,13 @@ def make_field(config, traffic, seed, device):
     half, zh = int(traffic["spot_half"]), int(traffic["z_half"])
     zm = int(traffic["z_margin"])
     side = 2 * half + 1
-    spot = moffat_cube(wavelengths(config, device), config["fsf"],
-                       float(config["geometry"]["pixstep_arcsec"]), side)
-    spot = spot / spot.amax(dim=(1, 2), keepdim=True)
+    spots = [moffat_cube(wavelengths(config, device), fsf,
+                         float(config["geometry"]["pixstep_arcsec"]), side)
+             for fsf in fsf_models(config)]
+    spots = torch.stack([s / s.amax(dim=(1, 2), keepdim=True)
+                         for s in spots])
+    index = field_index(config, device)
+    ar = torch.arange(side, device=device)
     lines = []
     for kind in ("faint", "bright"):
         n = int(traffic[f"n_{kind}"])
@@ -105,9 +154,13 @@ def make_field(config, traffic, seed, device):
             z_lo, z_hi = max(0, z0 - zh), min(nz, z0 + zh + 1)
             prof = amp[i] * torch.exp(-0.5 * ((z[z_lo:z_hi] - z0)
                                               / lsig[i]) ** 2)
+            # each pixel's spot from the field that covers it
+            cut = index[y0 - half:y0 + half + 1, x0 - half:x0 + half + 1]
+            spot = spots[cut, z_lo:z_hi, ar[:, None], ar[None, :]
+                         ].permute(2, 0, 1)
             data[z_lo:z_hi, y0 - half:y0 + half + 1,
                  x0 - half:x0 + half + 1] += (
-                prof[:, None, None] * spot[z_lo:z_hi]).to(torch.float32)
+                prof[:, None, None] * spot).to(torch.float32)
             lines.append((x0, y0, z0, kind))
 
     for (y0, x0) in traffic["nan_spaxels"]:

@@ -1,12 +1,14 @@
 """A small FITS writer and reader, frozen with the benchmark.
 
 The writer lays a MUSE-like cube out as the survey's files have it: an
-empty primary HDU with the FSF keywords (MUSE ``FSFMODE 2``), then a
-``DATA`` and a ``STAT`` image extension of big-endian float32, each with
-the spatial WCS (``CD`` matrix, degrees) and the wavelength axis
-(``AWAV``, Angstrom).  The cube is written from the device in slabs of
-channels.  The reader reads the image HDUs of a small file (the profile
-dictionary, a mask) for the plain reference and the check.
+empty primary HDU with the FSF keywords (MUSE ``FSFMODE 2``: one model, or
+one per field of a mosaic), then a ``DATA`` and a ``STAT`` image extension
+of big-endian float32, each with the spatial WCS (``CD`` matrix, degrees)
+and the wavelength axis (``AWAV``, Angstrom).  The cube is written from
+the device in slabs of channels.  A mosaic's field map (0 where no field
+covers a pixel, f + 1 where field f does) is a file of its own, one
+primary int32 image.  The reader reads the image HDUs of a small file
+(the profile dictionary, a mask) for the plain reference and the check.
 """
 
 import numpy as np
@@ -39,17 +41,21 @@ def header_bytes(cards):
     return raw + b" " * (-len(raw) % BLOCK)
 
 
-def primary_cards(fsf):
-    """Primary header: no data, the FSF model's keywords."""
+def primary_cards(fsf, fields=None):
+    """Primary header: no data, the FSF keywords: ``fsf``'s model as
+    field 00, or with ``fields`` (a mosaic) one model per field, FSF00 to
+    FSF<F-1>, all on ``fsf``'s wavelength range."""
     cards = [("SIMPLE", True), ("BITPIX", 8), ("NAXIS", 0), ("EXTEND", True),
              ("FSFMODE", 2), ("FSFLB1", float(fsf["lbrange"][0])),
-             ("FSFLB2", float(fsf["lbrange"][1])),
-             ("FSF00FNC", len(fsf["fwhm_pol"]))]
-    cards += [(f"FSF00F{i:02d}", float(c))
-              for i, c in enumerate(fsf["fwhm_pol"])]
-    cards.append(("FSF00BNC", len(fsf["beta_pol"])))
-    cards += [(f"FSF00B{i:02d}", float(c))
-              for i, c in enumerate(fsf["beta_pol"])]
+             ("FSFLB2", float(fsf["lbrange"][1]))]
+    for f, model in enumerate(fields or [fsf]):
+        key = f"FSF{f:02d}"
+        cards.append((f"{key}FNC", len(model["fwhm_pol"])))
+        cards += [(f"{key}F{i:02d}", float(c))
+                  for i, c in enumerate(model["fwhm_pol"])]
+        cards.append((f"{key}BNC", len(model["beta_pol"])))
+        cards += [(f"{key}B{i:02d}", float(c))
+                  for i, c in enumerate(model["beta_pol"])]
     return cards
 
 
@@ -84,14 +90,26 @@ def _write_tensor(fh, t, slab):
     fh.write(b"\0" * (-n % BLOCK))
 
 
-def write_cube(path, data, var, geom, fsf, slab=256):
+def write_cube(path, data, var, geom, fsf, slab=256, fields=None):
     """Write ``data`` and ``var`` (float32 tensors, (Nz, Ny, Nx)) as a
-    MUSE-like FITS cube."""
+    MUSE-like FITS cube; ``fields``: a mosaic's FSF model per field."""
     with open(path, "wb") as fh:
-        fh.write(header_bytes(primary_cards(fsf)))
+        fh.write(header_bytes(primary_cards(fsf, fields)))
         for name, t in (("DATA", data), ("STAT", var)):
             fh.write(header_bytes(image_cards(tuple(t.shape), geom, name)))
             _write_tensor(fh, t, slab)
+
+
+def write_fieldmap(path, fieldmap):
+    """Write a (Ny, Nx) integer field map as the primary image of a FITS
+    file, big-endian int32."""
+    ny, nx = np.shape(fieldmap)
+    raw = np.ascontiguousarray(fieldmap, dtype=">i4").tobytes()
+    with open(path, "wb") as fh:
+        fh.write(header_bytes([("SIMPLE", True), ("BITPIX", 32),
+                               ("NAXIS", 2), ("NAXIS1", nx),
+                               ("NAXIS2", ny)]))
+        fh.write(raw + b"\0" * (-len(raw) % BLOCK))
 
 
 def _parse(raw):

@@ -244,40 +244,63 @@ def toeplitz_same(p, nz, dtype, device):
     return torch.where(ok, taps[lag.clamp(0, n - 1)], 0.0)
 
 
-def spatial_filter(cube, psf, dtype, chunk=256):
+def spatial_filter(cube, psf, dtype, chunk=256, weights=None):
     """``(cube_fsf, norm_fsf)``: each channel correlated with its FSF made
     zero-mean ('same' size, FFT), and the ones image correlated with the
-    square of that kernel."""
+    square of that kernel.
+
+    A mosaic gives ``psf`` as the (F, Nz, P, P) stack of its fields' FSFs
+    and ``weights`` as their (F, Ny, Nx) weight maps: each field's term
+    is the weighted channel correlated with its own kernel, and the weight
+    map with that kernel's square, and the terms are summed (the
+    reference's multi-field ``Correlation_GLR_test``)."""
     nz, ny, nx = cube.shape
     p = psf.shape[-1]
     c = (p - 1) // 2
     fy, fx = ny + p - 1, nx + p - 1
-    kern = torch.flip(psf.to(dtype), dims=(1, 2))
-    kern = kern - kern.mean(dim=(1, 2), keepdim=True)
+    if weights is None:
+        psfs, maps = [psf], [None]
+    else:
+        psfs, maps = list(psf), [w.to(dtype) for w in weights]
+    terms = []
+    for one, w in zip(psfs, maps):
+        kern = torch.flip(one.to(dtype), dims=(1, 2))
+        kern = kern - kern.mean(dim=(1, 2), keepdim=True)
+        base = (torch.ones((ny, nx), dtype=dtype, device=cube.device)
+                if w is None else w)
+        terms.append((kern, torch.fft.rfft2(base, s=(fy, fx)), w))
     out = torch.empty((nz, ny, nx), dtype=dtype, device=cube.device)
     norm = torch.empty_like(out)
-    ones = torch.fft.rfft2(torch.ones((ny, nx), dtype=dtype,
-                                      device=cube.device), s=(fy, fx))
     for z0 in range(0, nz, chunk):
-        k = kern[z0:z0 + chunk]
-        kf = torch.fft.rfft2(k, s=(fy, fx))
-        xf = torch.fft.rfft2(cube[z0:z0 + chunk].to(dtype), s=(fy, fx))
-        out[z0:z0 + chunk] = torch.fft.irfft2(xf * kf, s=(fy, fx))[
-            :, c:c + ny, c:c + nx]
-        nf = torch.fft.rfft2(k * k, s=(fy, fx))
-        norm[z0:z0 + chunk] = torch.fft.irfft2(ones * nf, s=(fy, fx))[
-            :, c:c + ny, c:c + nx]
+        for f, (kern, base, w) in enumerate(terms):
+            k = kern[z0:z0 + chunk]
+            kf = torch.fft.rfft2(k, s=(fy, fx))
+            x = cube[z0:z0 + chunk].to(dtype)
+            if w is not None:
+                x = x * w
+            xf = torch.fft.rfft2(x, s=(fy, fx))
+            o = torch.fft.irfft2(xf * kf, s=(fy, fx))[:, c:c + ny, c:c + nx]
+            nf = torch.fft.rfft2(k * k, s=(fy, fx))
+            n = torch.fft.irfft2(base * nf, s=(fy, fx))[:, c:c + ny, c:c + nx]
+            if f == 0:
+                out[z0:z0 + chunk], norm[z0:z0 + chunk] = o, n
+            else:
+                out[z0:z0 + chunk] += o
+                norm[z0:z0 + chunk] += n
     return out, norm
 
 
-def glr(cube_faint, mask, psf, profiles, dtype=torch.float64, chunk=16384):
+def glr(cube_faint, mask, psf, profiles, dtype=torch.float64, chunk=16384,
+        weights=None):
     """``(correl, correl_min, profile, t_by_profile)``: the best GLR
     statistic over the profiles, the least, the first best profile's index
     and the (K, Nz, Ny, Nx) statistic of every profile.  Missing voxels
-    read 0."""
+    read 0.  A mosaic passes its FSF stack and ``weights``
+    (:func:`spatial_filter`)."""
     nz, ny, nx = cube_faint.shape
     dev = cube_faint.device
-    cube_fsf, norm_fsf = spatial_filter(cube_faint, psf, dtype)
+    cube_fsf, norm_fsf = spatial_filter(cube_faint, psf, dtype,
+                                        weights=weights)
     xs, ns = cube_fsf.reshape(nz, -1), norm_fsf.reshape(nz, -1)
     prepped = prepared_profiles(profiles)
     tk = torch.empty((len(prepped), nz, ny * nx), dtype=dtype, device=dev)
@@ -489,7 +512,7 @@ def ls_deconv(data, var, psf):
 
 
 def deconvolved_lines(raw, var, psf, xs, ys, dtype=torch.float64,
-                      order_dct=30, batch=32):
+                      order_dct=30, batch=32, weights=None):
     """Step 08's spectrum estimate at each detection (xs, ys), with no
     spatial search (``grid_dxy`` 0).
 
@@ -502,6 +525,12 @@ def deconvolved_lines(raw, var, psf, xs, ys, dtype=torch.float64,
     is the least-squares point source of the standardized data without
     it (the published PCA-LS method).  Returns ``(amplitude, variance)``,
     each (N, nz).
+
+    A mosaic passes ``psf`` as its (F, Nz, P, P) FSF stack and
+    ``weights`` as the (F, Ny, Nx) weight maps: each window's FSF is then
+    ``sum_f w_f(y, x) psf_f[z, y, x]`` over the window's pixels, the
+    weights reading 0 outside the field (the reference's
+    ``estimation_line``).
     """
     nz = raw.shape[0]
     size = psf.shape[-1]
@@ -516,6 +545,12 @@ def deconvolved_lines(raw, var, psf, xs, ys, dtype=torch.float64,
         yb, xb = ys[i0:i0 + batch], xs[i0:i0 + batch]
         data = windows(raw0, yb, xb, size, 0.0).to(dtype)
         v = windows(var0, yb, xb, size, math.inf).to(dtype)
+        if weights is not None:
+            w = windows(weights, yb, xb, size, 0.0).to(dtype)
+            psf_b = torch.einsum("bfyx,fzyx->bzyx", w, psf)
+            support = (psf_b.abs() > 0).to(dtype)
+        else:
+            psf_b = psf
         b = data.shape[0]
         sqv = torch.sqrt(v)
         std = data / sqv
@@ -523,14 +558,14 @@ def deconvolved_lines(raw, var, psf, xs, ys, dtype=torch.float64,
         xc = x - x.mean(dim=2, keepdim=True)
         u = left_vectors(xc)
         resid = x - u[:, :, None] * (u[:, None, :] @ xc)
-        amp, _ = ls_deconv(resid.reshape(data.shape), v, psf)
-        clean = ((data - psf * amp[..., None, None] * support) / sqv)
+        amp, _ = ls_deconv(resid.reshape(data.shape), v, psf_b)
+        clean = ((data - psf_b * amp[..., None, None] * support) / sqv)
         clean = clean.reshape(b, nz, -1)
         u2 = left_vectors(clean - clean.mean(dim=2, keepdim=True))
         u2 = (u2 @ d0) @ d0.T
         resid = std - (u2[:, :, None] * (u2[:, None, :] @ x)).reshape(
             data.shape)
-        amp, varest = ls_deconv(resid, v, psf)
+        amp, varest = ls_deconv(resid, v, psf_b)
         amps.append(amp)
         variances.append(varest)
     return torch.cat(amps), torch.cat(variances)

@@ -74,13 +74,31 @@ class Survey:
         self.spans = spans
         self.device = device
         self.cube_path = os.path.join(workdir, "field.fits")
+        self.fieldmap = (os.path.join(workdir, "fieldmap.fits")
+                         if "fieldmap" in config else None)
         self.dico = os.path.join(root, config["dictionary"])
+
+    def write(self, traffic, seed):
+        """Makes the field from the seed and writes it (and a mosaic's
+        field map) where the survey reads it."""
+        from benchmark import field, fitsfile
+
+        data, var, _ = field.make_field(self.config, traffic, seed,
+                                        self.device)
+        fitsfile.write_cube(self.cube_path, data, var,
+                            self.config["geometry"], self.config["fsf"],
+                            fields=self.config.get("fields"))
+        del data, var
+        if self.fieldmap is not None:
+            fitsfile.write_fieldmap(self.fieldmap, (field.field_index(
+                self.config, "cpu") + 1).numpy())
 
     def field(self):
         """One field through the configured steps; returns the session."""
         sp = self.spans.span
         with sp("init"):
             orig = self.ORIGIN.init(self.cube_path, profiles=self.dico,
+                                    fieldmap=self.fieldmap,
                                     device=self.device, name="field",
                                     path=self.workdir, loglevel="WARNING")
         for method, kwargs in self.config["survey"]:
@@ -125,7 +143,7 @@ def main(argv=None, require_chip=True, device="cuda", root=ROOT,
          before_check=None):
     args = parse(argv)
     sys.path.insert(0, root)
-    from benchmark import check, field, fitsfile, spec
+    from benchmark import check, spec
     from benchmark.trace import Spans
 
     bench = spec.load(root)
@@ -149,11 +167,8 @@ def main(argv=None, require_chip=True, device="cuda", root=ROOT,
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
-        data, var, _ = field.make_field(config, traffic, args.seed, device)
-        fitsfile.write_cube(os.path.join(workdir, "field.fits"), data, var,
-                            config["geometry"], config["fsf"])
-        del data, var
         survey = Survey(config, workdir, Spans(False, sync), device, root)
+        survey.write(traffic, args.seed)
         survey.release(survey.field())  # warm-up: builds and shapes
         os.sync()  # no write-back of set-up's files inside the window
         gc.collect()
@@ -201,11 +216,13 @@ def main(argv=None, require_chip=True, device="cuda", root=ROOT,
                                  idle_gaps=trace.gaps(spans))
     line["field_walls_s"] = walls
     line["power_limit"] = card_power_limit() if cuda else "cpu"
+    line["cat1_lines"] = len(summaries[-1]["cat1"])
     line["checks"] = checks
     found = banned_modules()
     if found:
         print(f"modules that the run must not load: {found}", file=sys.stderr)
         return 3
+    print(f"Cat1 lines a field: {line['cat1_lines']}", file=sys.stderr)
     for name, c in checks.items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",
               file=sys.stderr)
@@ -269,27 +286,37 @@ def load_profiles(path):
 
 def reference_inputs(config, traffic, seed, device, root):
     """What the reference takes besides the program's products: the raw
-    field again from the seed, the FSF cube and its FWHM in pixels per
-    channel, the profiles, their FWHMs and the half length of a line's
-    kept spectrum for each (in channels), the purity and step 03's
-    false-alarm probability."""
+    field again from the seed, the FSF cube (a mosaic: the (F, Nz, P, P)
+    stack of the fields' and their (F, Ny, Nx) 0/1 weight maps from the
+    configuration's rectangles; else no weights) and its FWHM in pixels
+    per channel (a mosaic: the mean over the fields), the profiles, their
+    FWHMs and the half length of a line's kept spectrum for each (in
+    channels), the purity and step 03's false-alarm probability."""
     import math
 
     import numpy as np
+    import torch
 
     from benchmark import field
 
     data, var, _ = field.make_field(config, traffic, seed, device)
     lbda = field.wavelengths(config, device)
-    fsf, pixstep = config["fsf"], float(config["geometry"]["pixstep_arcsec"])
-    psf = field.moffat_cube(lbda, fsf, pixstep, int(config["psf_size"]))
-    lb1, lb2 = fsf["lbrange"]
-    fwhm_psf = np.polyval(fsf["fwhm_pol"], (lbda.cpu().numpy() - lb1)
-                          / (lb2 - lb1)) / pixstep
+    pixstep = float(config["geometry"]["pixstep_arcsec"])
+    models = field.fsf_models(config)
+    psfs = [field.moffat_cube(lbda, fsf, pixstep, int(config["psf_size"]))
+            for fsf in models]
+    lb1, lb2 = config["fsf"]["lbrange"]
+    red = (lbda.cpu().numpy() - lb1) / (lb2 - lb1)
+    fwhm_psf = np.mean([np.polyval(fsf["fwhm_pol"], red) / pixstep
+                        for fsf in models], axis=0)
+    mosaic = "fields" in config
+    psf = torch.stack(psfs) if mosaic else psfs[0]
+    weights = field.weight_maps(config, device) if mosaic else None
     profiles, fwhms = load_profiles(os.path.join(root, config["dictionary"]))
     survey = dict(config["survey"])
     size_fwhm = survey["step08_compute_spectra"].get("spectrum_size_fwhm", 6)
-    return dict(raw=data, var=var, psf=psf, fwhm_psf=fwhm_psf,
+    return dict(raw=data, var=var, psf=psf, weights=weights,
+                fwhm_psf=fwhm_psf,
                 profiles=profiles, fwhm_profiles=fwhms,
                 spectrum_radius=[int(math.ceil(f * size_fwhm / 2))
                                  for f in fwhms],

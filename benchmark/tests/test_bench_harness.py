@@ -54,19 +54,53 @@ def _tiny_root(tmp_path, minsize=100):
                                  file="benchmark/configs/tiny_field.json"))
     bench["workloads"].append(dict(bench["workloads"][0], name=TINY,
                                    config="tiny_field", traffic="tiny_mix"))
-    for metric in bench["per_layer"]:
+    for metric in bench["per_layer"] + [
+            m for m in bench["end_to_end"] if "workloads" in m]:
         metric["workloads"] = metric.get("workloads", []) + [TINY]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
 
 
-def _run(root, trace=0, seed=3000000123):
+def _run(root, trace=0, seed=3000000123, workload=TINY):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = run.main(["--workload", TINY, "--seed", str(seed),
+        rc = run.main(["--workload", workload, "--seed", str(seed),
                        "--seconds", "0", "--trace", str(trace)],
                       require_chip=False, device="cpu", root=str(root))
     return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+MOSAIC = "tiny_mosaic.tiny_mix"
+# four fields, each with its own FSF (FWHM 0.64 + 0.04 f at the blue end,
+# beta 2.6 + 0.1 f), on the four quadrants of a 40 x 40 field
+MOSAIC_FIELDS = [dict(fwhm_pol=[-0.2, 0.64 + 0.04 * f], beta_pol=[2.6 + 0.1 * f])
+                 for f in range(4)]
+MOSAIC_MAP = [[0, 20, 0, 20], [0, 20, 20, 40], [20, 40, 0, 20],
+              [20, 40, 20, 40]]
+
+
+def _mosaic_config():
+    conf, mix = _tiny_config()
+    conf.update(name="tiny_mosaic", fields=MOSAIC_FIELDS,
+                fieldmap=MOSAIC_MAP)
+    return conf, mix
+
+
+def _mosaic_root(tmp_path):
+    """``_tiny_root`` with one more cell, a four-field mosaic, made only
+    of new files: a configuration with ``fields`` and ``fieldmap`` and a
+    ``workloads`` entry."""
+    root = _tiny_root(tmp_path)
+    conf, _ = _mosaic_config()
+    (root / "benchmark" / "configs" / "tiny_mosaic.json").write_text(
+        json.dumps(conf))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append(dict(bench["configs"][0], name="tiny_mosaic",
+                                 file="benchmark/configs/tiny_mosaic.json"))
+    bench["workloads"].append(dict(bench["workloads"][0], name=MOSAIC,
+                                   config="tiny_mosaic", traffic="tiny_mix"))
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
 
 
 def _tiny_config():
@@ -113,6 +147,160 @@ def test_field_file_reads_back_in_the_port(tmp_path):
     assert hdus[0][0]["FSF00F01"] == 0.7 and hdus[1][0]["EXTNAME"] == "DATA"
     assert torch.equal(torch.nan_to_num(torch.as_tensor(hdus[2][1])),
                        torch.nan_to_num(var))
+
+
+# -- a mosaic: one FSF per field under a field map -------------------------
+def test_a_mosaic_header_and_map_read_back_in_the_port(tmp_path):
+    """The written header reads back in the port as one model per field
+    with the configuration's polynomials, and the port's weights from the
+    written field map equal the harness's."""
+    import numpy as np
+
+    from benchmark import fitsfile
+    from origin_tpu_torch import fitsio
+    from origin_tpu_torch.core.fsf import FieldsMap, read_fsf_from_header
+
+    conf, mix = _mosaic_config()
+    survey = run.Survey.__new__(run.Survey)
+    survey.config, survey.device = conf, "cpu"
+    survey.cube_path = str(tmp_path / "field.fits")
+    survey.fieldmap = str(tmp_path / "fieldmap.fits")
+    survey.write(mix, 17)
+    models = read_fsf_from_header(fitsio.read(survey.cube_path)[0].header)
+    assert [(m.fwhm_pol, m.beta_pol) for m in models] == [
+        (f["fwhm_pol"], f["beta_pol"]) for f in MOSAIC_FIELDS]
+    assert all(m.lbrange == tuple(conf["fsf"]["lbrange"]) for m in models)
+    fmap = fitsfile.read_images(survey.fieldmap)[0][1]
+    assert fmap.shape == (40, 40) and fmap[0, 0] == 1 and fmap[39, 39] == 4
+    got = FieldsMap(survey.fieldmap, nfields=4).compute_weights()
+    want = field.weight_maps(conf, "cpu").numpy()
+    assert np.array_equal(np.stack(got), want)
+
+
+def test_a_mosaic_line_takes_the_fsf_of_each_pixel_field():
+    """A line across the quadrants' corner: each pixel of its stamp is the
+    spot of the field that covers it; the draws are the single field's."""
+    conf, mix = _mosaic_config()
+    single, _ = _tiny_config()
+    mix = dict(mix, n_cont=0, n_faint=0, n_bright=1, noise=1e-30,
+               nan_spaxels=[])
+    data, _, src = field.make_field(conf, mix, 4, "cpu")
+    plain, _, src1 = field.make_field(single, mix, 4, "cpu")
+    assert src == src1
+    x0, y0, z0, _ = src["lines"][0]
+    half = mix["spot_half"]
+    stamp = data[z0, y0 - half:y0 + half + 1, x0 - half:x0 + half + 1]
+    index = field.field_index(conf, "cpu")[y0 - half:y0 + half + 1,
+                                            x0 - half:x0 + half + 1]
+    lbda = field.wavelengths(conf, "cpu")
+    for f, fsf in enumerate(field.fsf_models(conf)):
+        spot = field.moffat_cube(lbda[z0:z0 + 1], fsf, 0.2, 2 * half + 1)[0]
+        spot = spot / spot.max()
+        on = index == f
+        if bool(on.any()):
+            ratio = stamp[on].double() / spot[on]
+            assert float(ratio.max() - ratio.min()) < 1e-5 * float(ratio.max())
+    assert not torch.equal(data, plain)
+
+
+def test_one_field_paths_are_bit_identical_to_the_single_field():
+    """With one FSF for every field the generator writes the single
+    field's cube bit for bit; the reference's multi-field sums over one
+    field with weight 1 give the single-field results bit for bit (lines
+    away from the edge, where the weights read 0 outside the field)."""
+    from benchmark import fitsfile
+    from benchmark import reference as ref
+
+    conf, mix = _tiny_config()
+    same = dict(conf, fields=[dict(fwhm_pol=conf["fsf"]["fwhm_pol"],
+                                   beta_pol=conf["fsf"]["beta_pol"])] * 2,
+                fieldmap=[[0, 40, 0, 13], [0, 40, 13, 40]])
+    a, va, _ = field.make_field(conf, mix, 99, "cpu")
+    b, vb, _ = field.make_field(same, mix, 99, "cpu")
+    assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    assert torch.equal(torch.nan_to_num(va), torch.nan_to_num(vb))
+    assert (fitsfile.primary_cards(conf["fsf"], [conf["fsf"]])
+            == fitsfile.primary_cards(conf["fsf"]))
+
+    psf = field.moffat_cube(field.wavelengths(conf, "cpu"), conf["fsf"],
+                            0.2, 25)
+    ones = torch.ones((1, 40, 40), dtype=torch.float64)
+    g = torch.Generator().manual_seed(1)
+    faint = torch.randn((300, 40, 40), generator=g)
+    mask = ~torch.isfinite(a)
+    profiles = run.load_profiles(os.path.join(
+        BENCH, "configs", "Dico_3FWHM.fits"))[0]
+    for dt in (torch.float64, torch.float32):
+        one = ref.glr(faint, mask, psf, profiles, dt)
+        multi = ref.glr(faint, mask, psf[None], profiles, dt, weights=ones)
+        assert all(torch.equal(x, y) for x, y in zip(one, multi))
+        one = ref.deconvolved_lines(a, va, psf, [20, 14], [20, 25], dt)
+        multi = ref.deconvolved_lines(a, va, psf[None], [20, 14], [20, 25],
+                                      dt, weights=ones)
+        assert all(torch.equal(x, y) for x, y in zip(one, multi))
+
+
+def test_the_reference_spatial_filter_agrees_with_the_port_on_a_mosaic():
+    """The reference's multi-field spatial stage against the port's
+    ``glr_spatial`` on the CPU, both in float64 on the same FSF stack and
+    weights.  Tolerance 1e-9 of the largest value: the two sides differ
+    only in FFT sizes and summation order, float64 rounding of ~1e-14 per
+    operation over a few thousand terms."""
+    from benchmark import reference as ref
+    from origin_tpu_torch.ops.convolve import fft2_shape
+    from origin_tpu_torch.ops.glr import glr_spatial
+
+    conf, _ = _mosaic_config()
+    lbda = field.wavelengths(conf, "cpu")
+    psfs = torch.stack([field.moffat_cube(lbda, fsf, 0.2, 25)
+                        for fsf in field.fsf_models(conf)])
+    weights = field.weight_maps(conf, "cpu")
+    g = torch.Generator().manual_seed(2)
+    cube = torch.randn((300, 40, 40), generator=g, dtype=torch.float64)
+    want = ref.spatial_filter(cube, psfs, torch.float64, weights=weights)
+    got = glr_spatial(cube, psfs, weights, fft2_shape((40, 40), (25, 25)))
+    for w, gt in zip(want, got):
+        scale = float(w.abs().max())
+        assert float((w - gt).abs().max()) <= 1e-9 * scale
+    plain = ref.spatial_filter(cube, psfs[0], torch.float64)
+    assert float((plain[0] - want[0]).abs().max()) > 1e-3 * float(
+        want[0].abs().max())
+
+
+def test_a_mosaic_cell_of_new_files_runs_correct(tmp_path):
+    root = _mosaic_root(tmp_path)
+    rc, line = _run(root, workload=MOSAIC)
+    assert rc == 0
+    assert line["correct"] is True, line["checks"]
+    assert line["attempted"] == 1
+
+
+@pytest.mark.parametrize("stage,at,numbers", [
+    ("spatial_filter", 1, ("correl_gap",)),
+    ("deconvolved_lines", 2, ("flux_gap", "line_gap", "line_pos_differ")),
+])
+def test_a_reference_without_one_field_fsf_is_not_correct(
+        tmp_path, monkeypatch, stage, at, numbers):
+    """The reference's mosaic sum (step 05's spatial stage, or step 08's
+    window FSF) with the last field's FSF dropped: the tiny mosaic cell
+    comes out not correct, on that stage's numbers."""
+    from benchmark import reference as ref
+
+    plain = getattr(ref, stage)
+
+    def dropped(*args, weights=None, **kwargs):
+        if weights is not None:
+            args = list(args)
+            args[at], weights = args[at][:-1], weights[:-1]
+        return plain(*args, weights=weights, **kwargs)
+
+    monkeypatch.setattr(ref, stage, dropped)
+    root = _mosaic_root(tmp_path)
+    rc, line = _run(root, workload=MOSAIC)
+    assert rc == 0
+    assert line["correct"] is False
+    assert any(line["checks"][n]["value"] > line["checks"][n]["limit"]
+               for n in numbers), line["checks"]
 
 
 # -- BENCHMARK.json and its files ----------------------------------------
