@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device, set_precision
 from .convolve import fft2_shape, fftconvolve2d_same
 from .prec import split_and_dot, sqrt_rn
@@ -285,6 +286,10 @@ def glr_spatial_matmul(cube, kern_r, kern_i, wmaps, factors,
     x-DFT, ``pr``/``pi`` after the float32 spectral multiply and
     ``gr``/``gi`` before the inverse x-DFT.  This is the plain version of
     the CUDA kernel :func:`origin_tpu_torch.ops.spatial.spatial_fsf`.
+
+    Each field's pass is one ``glr.field`` span (attribute ``index``, the
+    field's), which while tracing is on waits for the device at both ends
+    (:func:`origin_tpu_torch.tracing.span`).
     """
     sp, d3 = split_and_dot(precision)
     axr, axi = sp(factors["axr"]), sp(factors["axi"])
@@ -293,21 +298,22 @@ def glr_spatial_matmul(cube, kern_r, kern_i, wmaps, factors,
     cxr, cxi = sp(factors["cxr"]), sp(factors["cxi"])
     cube_fsf = None
     for nf in range(kern_r.shape[0]):
-        data = sp(_field_data(cube, wmaps, nf))
-        zr = sp(d3(data, axr))  # (z, ny, FXr)
-        zi = sp(d3(data, axi))
-        del data
-        yr = d3(ayr, zr) - d3(ayi, zi)  # (z, FY, FXr)
-        yi = d3(ayr, zi) + d3(ayi, zr)
-        del zr, zi
-        pr = sp(yr * kern_r[nf] - yi * kern_i[nf])
-        pi = sp(yr * kern_i[nf] + yi * kern_r[nf])
-        del yr, yi
-        gr = sp(d3(byr, pr) - d3(byi, pi))  # (z, ny, FXr)
-        gi = sp(d3(byr, pi) + d3(byi, pr))
-        del pr, pi
-        out = d3(gr, cxr) - d3(gi, cxi)
-        cube_fsf = out if cube_fsf is None else cube_fsf + out
+        with tracing.span("glr.field", sync=cube.device, index=nf):
+            data = sp(_field_data(cube, wmaps, nf))
+            zr = sp(d3(data, axr))  # (z, ny, FXr)
+            zi = sp(d3(data, axi))
+            del data
+            yr = d3(ayr, zr) - d3(ayi, zi)  # (z, FY, FXr)
+            yi = d3(ayr, zi) + d3(ayi, zr)
+            del zr, zi
+            pr = sp(yr * kern_r[nf] - yi * kern_i[nf])
+            pi = sp(yr * kern_i[nf] + yi * kern_r[nf])
+            del yr, yi
+            gr = sp(d3(byr, pr) - d3(byi, pi))  # (z, ny, FXr)
+            gi = sp(d3(byr, pi) + d3(byi, pr))
+            del pr, pi
+            out = d3(gr, cxr) - d3(gi, cxi)
+            cube_fsf = out if cube_fsf is None else cube_fsf + out
     return cube_fsf
 
 
@@ -319,8 +325,8 @@ def glr_spatial_chunked(cube, psfs, wmaps, fshape2, zchunk=512):
     spectral slabs of ``zchunk`` channels, so that no spectra bank of the
     whole cube is held and the transients stay near ``zchunk / Nz`` of the
     whole cube's.  ``psfs`` is (F, Nz, P, P), ``wmaps`` (F, Ny, Nx) or None
-    (one field); the fields' terms are summed.  Returns two (Nz, Ny, Nx)
-    float32 tensors.
+    (one field); the fields' terms are summed, each field's slabs in one
+    ``glr.field`` span.  Returns two (Nz, Ny, Nx) float32 tensors.
     """
     nz, ny, nx = cube.shape
     ph, pw = psfs.shape[-2:]
@@ -332,20 +338,24 @@ def glr_spatial_chunked(cube, psfs, wmaps, fshape2, zchunk=512):
         return a[:, y0 : y0 + ny, x0 : x0 + nx]
 
     for nf in range(psfs.shape[0]):
-        base = (torch.ones((1, ny, nx), dtype=cube.dtype, device=cube.device)
-                if wmaps is None else wmaps[nf][None])
-        bf = torch.fft.rfft2(base, s=fshape2)
-        for z0 in range(0, nz, zchunk):
-            z1 = min(nz, z0 + zchunk)
-            kern = torch.flip(psfs[nf, z0:z1], dims=(1, 2))
-            kern = kern - torch.mean(kern, dim=(1, 2), keepdim=True)
-            data = cube[z0:z1] if wmaps is None else cube[z0:z1] * wmaps[nf]
-            cf = torch.fft.rfft2(data, s=fshape2)
-            cf *= torch.fft.rfft2(kern, s=fshape2)
-            cube_fsf[z0:z1] += same(torch.fft.irfft2(cf, s=fshape2))
-            del cf
-            k2f = torch.fft.rfft2(kern * kern, s=fshape2)
-            norm_fsf[z0:z1] += same(torch.fft.irfft2(bf * k2f, s=fshape2))
+        with tracing.span("glr.field", sync=cube.device, index=nf):
+            base = (torch.ones((1, ny, nx), dtype=cube.dtype,
+                               device=cube.device)
+                    if wmaps is None else wmaps[nf][None])
+            bf = torch.fft.rfft2(base, s=fshape2)
+            for z0 in range(0, nz, zchunk):
+                z1 = min(nz, z0 + zchunk)
+                kern = torch.flip(psfs[nf, z0:z1], dims=(1, 2))
+                kern = kern - torch.mean(kern, dim=(1, 2), keepdim=True)
+                data = (cube[z0:z1] if wmaps is None
+                        else cube[z0:z1] * wmaps[nf])
+                cf = torch.fft.rfft2(data, s=fshape2)
+                cf *= torch.fft.rfft2(kern, s=fshape2)
+                cube_fsf[z0:z1] += same(torch.fft.irfft2(cf, s=fshape2))
+                del cf
+                k2f = torch.fft.rfft2(kern * kern, s=fshape2)
+                norm_fsf[z0:z1] += same(torch.fft.irfft2(bf * k2f,
+                                                         s=fshape2))
     return cube_fsf, norm_fsf
 
 

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from .glr import glr_spatial_matmul
 from .prec import check_precision
 from .sweep import check_tensor
@@ -89,7 +90,8 @@ def spatial_fsf(cube, kern_r, kern_i, wmaps, factors, precision="highest"):
     CPU tensor this is the plain version; on a CUDA tensor it launches the
     kernel once per field (each launch counted in
     ``spatial_fsf.launches``) and sums the fields in order, as
-    ``glr_spatial_pallas`` does.
+    ``glr_spatial_pallas`` does; each field's launch and sum is one
+    ``glr.field`` span, as in :func:`glr_spatial_matmul`.
     """
     check_precision(precision)
     dev = cube.device
@@ -121,19 +123,20 @@ def spatial_fsf(cube, kern_r, kern_i, wmaps, factors, precision="highest"):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for f in range(nfields):
-            o = torch.empty((nz, ny, nx), dtype=f32, device=dev)
-            w = None if wmaps is None else wmaps[f].data_ptr()
-            err = lib.spatial_fsf_launch(
-                cube.data_ptr(), w, kern_r[f].data_ptr(),
-                kern_i[f].data_ptr(),
-                *(factors[name].data_ptr() for name in FACTORS),
-                o.data_ptr(), nz, ny, nx, fy, fxr, tk, x3, stream)
-            if err != 0:
-                msg = lib.spatial_fsf_error_string(err).decode()
-                raise RuntimeError(f"spatial_fsf kernel launch failed: {msg} "
-                                   f"(cudaError {err})")
-            spatial_fsf.launches += 1
-            out = o if out is None else out + o
+            with tracing.span("glr.field", sync=dev, index=f):
+                o = torch.empty((nz, ny, nx), dtype=f32, device=dev)
+                w = None if wmaps is None else wmaps[f].data_ptr()
+                err = lib.spatial_fsf_launch(
+                    cube.data_ptr(), w, kern_r[f].data_ptr(),
+                    kern_i[f].data_ptr(),
+                    *(factors[name].data_ptr() for name in FACTORS),
+                    o.data_ptr(), nz, ny, nx, fy, fxr, tk, x3, stream)
+                if err != 0:
+                    msg = lib.spatial_fsf_error_string(err).decode()
+                    raise RuntimeError(f"spatial_fsf kernel launch failed: "
+                                       f"{msg} (cudaError {err})")
+                spatial_fsf.launches += 1
+                out = o if out is None else out + o
     return out
 
 

@@ -788,8 +788,9 @@ class TorchEngine:
         masking, local extrema and the max/min maps.  A tight-memory
         session runs the spatial stage in spectral slabs
         (:func:`glr_spatial_chunked`) instead of holding the spectra bank,
-        as the JAX engine does.  Returns (device dict, host dict with the
-        maxmap/minmap images).
+        as the JAX engine does.  Counts the fields (``glr.fields``) and the
+        bank's bytes (``glr.bank_bytes``, 0 when tight) once a call.
+        Returns (device dict, host dict with the maxmap/minmap images).
         """
         faint = self.get("cube_faint")
         nz, ny, nx = faint.shape
@@ -808,7 +809,9 @@ class TorchEngine:
             prepped, block=min(128, nz))
         prof_dtype = _profile_dtype(len(prepped))
         prec = self._kernel_precision()
+        tracing.count("glr.fields", psfs.shape[0])
         if self.tight_memory:
+            tracing.count("glr.bank_bytes", 0)  # no spectra bank is held
             cube_fsf, norm_fsf = glr_spatial_chunked(
                 faint, self._upload(psfs), wmaps, fshape2)
         else:
@@ -834,6 +837,7 @@ class TorchEngine:
         ny, nx = faint.shape[1:]
         kern_r, kern_i, factors, norm_fsf = spatial_operands(
             self._upload(psfs), wmaps, ny, nx, fshape2)
+        tracing.count("glr.bank_bytes", kern_r.nbytes + kern_i.nbytes)
         # the JAX engine's route (engine.py:1025-1032): the fused spatial
         # kernel only in bf16x3 and only on a field it admits, else the
         # float32 matmul chain (XLA there, cuBLAS here); not a fallback

@@ -11,7 +11,10 @@ on:
 - a session's init and step spans (:func:`step_span`) synchronize their
   device at their end, and record ``torch.cuda.max_memory_allocated()`` at
   their start and end (``peak_start``, ``peak_end``; the peak is never
-  reset here).
+  reset here);
+- a span given ``sync=device`` synchronizes that device's current stream
+  at both ends (on a CUDA device; nothing on the CPU), so that it times
+  the device's work enqueued inside it: step 05's ``glr.field``.
 
 Times are ``time.time_ns()``, the wall clock that kineto's device events
 carry, so the spans and the device activity share one timeline.
@@ -82,14 +85,15 @@ def new_field():
 class _Span:
     """An open span; ``elapsed_s`` reads its host time so far (or whole,
     once closed).  ``device`` is the CUDA device that a step span
-    synchronizes, else None."""
+    synchronizes, else None; ``stream`` the device whose current stream
+    the span synchronizes at both ends, else None."""
 
-    __slots__ = ("name", "field", "attrs", "device", "on", "start_ns",
-                 "end_ns", "parent", "_range")
+    __slots__ = ("name", "field", "attrs", "device", "on", "stream",
+                 "start_ns", "end_ns", "parent", "_range")
 
-    def __init__(self, name, field, device, attrs, on):
+    def __init__(self, name, field, device, attrs, on, stream=None):
         self.name, self.field, self.attrs = name, field, attrs
-        self.device, self.on = device, on
+        self.device, self.on, self.stream = device, on, stream
         self.end_ns = None
 
     def __enter__(self):
@@ -105,12 +109,17 @@ class _Span:
             stack.append(self)
             self._range = record_function(self.name)
             self._range.__enter__()
+            if self.stream is not None:
+                _sync_stream(self.stream)
         self.start_ns = time.time_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        if self.on and self.device is not None and exc_type is None:
-            torch.cuda.synchronize(self.device)
+        if self.on and exc_type is None:
+            if self.device is not None:
+                torch.cuda.synchronize(self.device)
+            elif self.stream is not None:
+                _sync_stream(self.stream)
         self.end_ns = time.time_ns()
         if self.on:
             self._range.__exit__(exc_type, exc, tb)
@@ -128,12 +137,22 @@ class _Span:
         return (end - self.start_ns) / 1e9
 
 
-def span(name, *, field=None, **attrs):
+def _sync_stream(device):
+    """Waits for the work enqueued on ``device``'s current stream (a CUDA
+    device; nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def span(name, *, field=None, sync=None, **attrs):
     """A span around host work or up to an existing wait on the device;
-    the shared no-op context while tracing is off."""
+    with ``sync`` (a device), around the device work enqueued inside it,
+    its current stream synchronized at both ends.  The shared no-op
+    context while tracing is off: no synchronization then."""
     if not enabled():
         return _OFF
-    return _Span(name, field, None, attrs, True)
+    return _Span(name, field, None, attrs, True,
+                 None if sync is None else torch.device(sync))
 
 
 def step_span(name, device, *, field=None, **attrs):

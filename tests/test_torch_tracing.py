@@ -12,6 +12,12 @@
   ``greedy.iterations`` the iterations the areas ran; ``lines.chunk``
   spans number ⌈Cat1 lines / 64⌉; ``timestat``'s total equals the step
   spans.
+- Step 05 of a small mosaic (``tests/mosaic_cases.py``; F = 4 fields and
+  its single-field twin): under a CPU profile one ``glr.field`` span per
+  field, indices 0 to F - 1 in order, inside ``step05``, each waiting for
+  the device at both ends, and the counters ``glr.fields`` (F) and
+  ``glr.bank_bytes`` (the FSF spectra bank's bytes); with no profiler
+  nothing is recorded and nothing waits for a device.
 - ``gpu``: a span around a sweep launch under a CUDA-only profile brackets
   that kernel's interval in the profile, on the same clock.
 
@@ -47,6 +53,7 @@ PARENTS = {
     "preprocess.segmentation": "step01",
     "greedy.area": "step04",
     "greedy.iteration": "greedy.area",
+    "glr.field": "step05",
     "purity.segmap": "step06",
     "purity.counts": "step06",
     "lines.chunk": "step08",
@@ -262,6 +269,62 @@ def test_greedy_pca_counts_a_capped_area():
                    "greedy.nuisance_columns": int((test0 > thres).sum()),
                    "greedy.area_columns": 30}
     assert int(mapo2.sum()) == got["greedy.nuisance_columns"]
+
+
+# -- step 05's fields -----------------------------------------------------
+def _step05(tmp_path, nfields, monkeypatch):
+    """A small mosaic of ``nfields`` through step 05; returns its records
+    and the calls that waited for a device (``tracing._sync_stream``,
+    ``torch.cuda.synchronize``, ``torch.cuda.current_stream``)."""
+    import mosaic_cases
+
+    waits = []
+    real = tracing._sync_stream
+    monkeypatch.setattr(tracing, "_sync_stream",
+                        lambda d: waits.append(("stream", d)) or real(d))
+    for name in ("synchronize", "current_stream"):
+        monkeypatch.setattr(torch.cuda, name,
+                            lambda *a, _n=name, **k: waits.append((_n, a)))
+    tracing.clear()
+    orig, _, _ = mosaic_cases.session(tmp_path, nfields, 3230000123,
+                                      steps=5)
+    orig.close_logfile()
+    got = tracing.records()
+    tracing.clear()
+    return orig, got, waits
+
+
+@pytest.mark.parametrize("nfields", [1, 4])
+def test_step05_records_a_span_per_field_and_the_bank(tmp_path, monkeypatch,
+                                                      nfields):
+    from origin_tpu_torch.ops.convolve import fft2_shape
+
+    with _cpu_profile():
+        orig, (spans, counts), waits = _step05(tmp_path, nfields,
+                                               monkeypatch)
+    fields = [s for s in spans if s.name == "glr.field"]
+    (step05,) = [s for s in spans if s.name == "step05"]
+    assert [s.attrs["index"] for s in fields] == list(range(nfields))
+    for s in fields:
+        assert s.parent == "step05" and s.field == step05.field
+        assert step05.start_ns <= s.start_ns <= s.end_ns <= step05.end_ns
+    total = collections.Counter()
+    for c in counts:
+        total[c.name] += c.n
+    assert sum(c.name == "glr.fields" for c in counts) == 1
+    assert total["glr.fields"] == nfields
+    nz, ny, nx = orig.shape
+    fy, fx = fft2_shape((ny, nx), (25, 25))
+    assert total["glr.bank_bytes"] == nfields * nz * fy * (fx // 2 + 1) * 8
+    # each span waits for the device at both ends (the CPU: no stream)
+    assert waits == [("stream", torch.device("cpu"))] * (2 * nfields)
+
+
+def test_off_step05_records_nothing_and_waits_for_no_device(tmp_path,
+                                                            monkeypatch):
+    assert not tracing.enabled()
+    _, got, waits = _step05(tmp_path, 4, monkeypatch)
+    assert got == ([], []) and waits == []
 
 
 # -- on the card --------------------------------------------------------
