@@ -6,6 +6,10 @@ Here it is a Python loop that syncs with the host once per greedy
 iteration (to test whether any spaxel still exceeds the O2 threshold), and
 the 200-step power iteration inside it never syncs: it always runs its
 whole budget (see :func:`rank1_left_vector` for why it has no stop test).
+That power iteration reads the nuisance columns alone, gathered into an
+(Nz, npyp) block; the JAX function runs it over the whole area with the
+other columns zeroed, which adds exact zeros, so both give the same
+vector to float32 summation order.
 
 Selection ties follow the JAX semantics: ``argsort`` is stable (the JAX
 default), ``argmax`` returns the first maximal column.
@@ -120,11 +124,16 @@ def greedy_pca(cube, valid, test0, thres, noise_population=50.0, itermax=100,
             b = (faint @ w) / torch.clamp(torch.sum(w), min=1.0)
 
             # nuisance block, orthogonalized against the background
-            # signature
-            xr = torch.where(pypx[None, :], faint, 0.0)
+            # signature: the npyp nuisance columns alone, in ascending
+            # order (a stable sort puts them first, with no host sync), so
+            # the power iteration starts from the same column, ties
+            # included, as over the whole area with the others zeroed
+            cols = torch.argsort(~pypx, stable=True)[:npyp]
+            xr = faint[:, cols]
             xr = xr - torch.outer(b, b @ xr)
             xr = xr / torch.sum(b * b)
 
+            tracing.count("greedy.power_columns", npyp)
             u = rank1_left_vector(xr)
             del xr
             c = u @ faint

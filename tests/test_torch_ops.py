@@ -158,6 +158,49 @@ def test_greedy_pca_itermax_stop():
     assert mt.max() == 6  # the bail-out iteration still counts
 
 
+@pytest.mark.parametrize("npix,share,tie", [
+    (2048, 1, False), (1024, 5, False), (512, 15, False), (1024, 5, True),
+    (512, 100, False)],
+    ids=["1pc", "5pc", "15pc", "5pc-tie", "all"])
+def test_greedy_pca_gathered_nuisance(npix, share, tie):
+    """The port's power iteration reads the gathered nuisance columns, the
+    JAX one the whole area with the others zeroed: the same results at a
+    step-04-like nuisance share (percent of the columns above the
+    threshold at the start).
+
+    ``tie``: the largest column and its negation share the largest norm
+    exactly; both packages start from the first of the two, so the first
+    removed vector has the same sign.  ``share`` 100: no column passes, so
+    the background signature is zero and both packages divide by it (every
+    column counted once, faint all NaN)."""
+    rng = np.random.default_rng(npix + share)
+    cube, _ = _correlated_cube(rng, nz=200, npix=npix,
+                               n_bright=max(2, npix * share // 100))
+    if tie:
+        test = np.mean(cube.astype(np.float64) ** 2, axis=0)
+        j = int(np.argmax(test))
+        lo, hi = sorted((j, (j + npix // 2) % npix))
+        cube[:, lo] = cube[:, j]
+        cube[:, hi] = -cube[:, lo]
+    test = np.mean(cube.astype(np.float64) ** 2, axis=0).astype(np.float32)
+    thres = (float(np.percentile(test, 100.0 - share)) if share < 100
+             else 0.5 * float(test.min()))
+    (fj, mj, kj, uj, cj), (ft, mt, kt, ut, ct) = _greedy_both(cube, test,
+                                                             thres)
+    np.testing.assert_array_equal(mt, mj)
+    assert kt == kj == 0
+    np.testing.assert_allclose(ft, fj, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(cube - ut @ ct, ft, rtol=0, atol=1e-4)
+    if share < 100:
+        assert mj.max() >= 2  # the loop ran real iterations
+        assert np.isfinite(ft).all()
+    else:
+        assert (mj == 1).all() and np.isnan(ft).all() and np.isnan(fj).all()
+    if tie:
+        assert mj[lo] == mj[hi] >= 1
+        np.testing.assert_allclose(ut[:, 0], uj[:, 0], rtol=0, atol=1e-4)
+
+
 def test_power_iteration_matches():
     rng = np.random.default_rng(7)
     u = rng.normal(size=80)

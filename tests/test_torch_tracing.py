@@ -9,7 +9,9 @@
 - Under a CPU profile, the same session records the spans of the table in
   ``PERF.md`` section 3 with their parents and one field id per session;
   Σ ``greedy.nuisance_columns`` equals ``mapO2.sum()``, and
-  ``greedy.iterations`` the iterations the areas ran; ``lines.chunk``
+  ``greedy.iterations`` the iterations the areas ran, Σ
+  ``greedy.power_columns`` the columns of the blocks the power iterations
+  read (also on one area, on and off); ``lines.chunk``
   spans number ⌈Cat1 lines / 64⌉; ``timestat``'s total equals the step
   spans.
 - Step 05 of a small mosaic (``tests/mosaic_cases.py``; F = 4 fields and
@@ -27,6 +29,7 @@ tests/test_torch_tracing.py``.
 """
 
 import collections
+import contextlib
 import datetime
 import math
 
@@ -84,7 +87,8 @@ def _steps(orig, seg_fn):
 @pytest.fixture(scope="module")
 def sessions(tmp_path_factory):
     """The minicube through steps 01-10, off and then under a CPU profile,
-    with the power iterations of step 04 counted in the traced one."""
+    with the power iterations of step 04 and their blocks' columns kept in
+    the traced one."""
     from origin_tpu_torch.pipeline.session import ORIGIN
     from tools_torch.synthetic import make_minicube, make_segmap
 
@@ -100,13 +104,14 @@ def sessions(tmp_path_factory):
     real = pca.rank1_left_vector
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pca, "rank1_left_vector",
-                   lambda m: calls.append(1) or real(m))
+                   lambda m: calls.append(m.shape[1]) or real(m))
         with _cpu_profile():
             on = _steps(ORIGIN.init(cube_fn, name="on", **kw), seg_fn)
             faint = np.array(on.cube_faint.data)
             on.engine.release()
     yield dict(off=off, off_records=off_records, on=on, faint=faint,
-               records=tracing.records(), power_iterations=len(calls))
+               records=tracing.records(), power_iterations=len(calls),
+               power_columns=calls)
     tracing.clear()
     off.close_logfile()
     on.close_logfile()
@@ -222,6 +227,63 @@ def test_greedy_counters_match_mapo2_and_the_iterations(sessions):
         for c in counts if c.name == "greedy.iterations"
         and s.start_ns <= c.t_ns <= s.end_ns)
     assert 0 < total["greedy.nuisance_columns"] < total["greedy.area_columns"]
+
+
+def test_greedy_power_columns_are_the_gathered_blocks(sessions):
+    """Σ ``greedy.power_columns`` is the columns the power iterations read:
+    each one's block, npyp wide, which is mapO2's sum less the nuisance
+    columns of the iterations that ran none (an area's last, at a
+    break), and below the area's columns that the iterations count."""
+    on = sessions["on"]
+    _, counts = sessions["records"]
+    power = [c.n for c in counts if c.name == "greedy.power_columns"]
+    assert power == sessions["power_columns"]
+    assert len(power) == sessions["power_iterations"] > 0
+    faint = sessions["faint"]
+    faint = faint.reshape(faint.shape[0], -1)
+    areamap = np.asarray(on.areamap.data).ravel()
+    left = 0
+    for area, thres in enumerate(on.param["threshold_list"], start=1):
+        cols = torch.as_tensor(np.asarray(faint[:, areamap == area]))
+        left += int((torch.mean(cols * cols, dim=0) > thres).sum())
+    assert sum(power) == int(np.asarray(on.mapO2.data).sum()) - left
+    area_columns = sum(c.n for c in counts if c.name == "greedy.area_columns")
+    assert 0 < sum(power) < area_columns
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["off", "on"])
+def test_greedy_pca_counts_its_power_columns_while_tracing(traced,
+                                                          monkeypatch):
+    """One area: each power iteration gets that iteration's npyp columns,
+    and counts them as ``greedy.power_columns`` while a profile records;
+    with tracing off nothing is recorded."""
+    rng = np.random.default_rng(5)
+    z = np.linspace(0.0, 1.0, 60)[:, None]
+    cube = rng.normal(size=(60, 200)) + 2.0 * np.cos(3.0 * z)
+    cube[:, ::25] += 6.0 * np.cos(7.0 * z + rng.uniform(size=8))
+    cube = torch.from_numpy(cube.astype(np.float32))
+    test0 = torch.mean(cube * cube, dim=0)
+    thres = float(torch.quantile(test0, 0.9))
+    widths = []
+    real = pca.rank1_left_vector
+    monkeypatch.setattr(pca, "rank1_left_vector",
+                        lambda m: widths.append(m.shape[1]) or real(m))
+    tracing.clear()
+    with _cpu_profile() if traced else contextlib.nullcontext():
+        _, mapo2, _ = pca.greedy_pca(cube, torch.ones(200, dtype=torch.bool),
+                                     test0, thres)
+    spans, counts = tracing.records()
+    tracing.clear()
+    assert len(widths) >= 2
+    if not traced:
+        assert (spans, counts) == ([], [])
+        return
+    power = [c.n for c in counts if c.name == "greedy.power_columns"]
+    nuisance = [c.n for c in counts if c.name == "greedy.nuisance_columns"]
+    assert power == widths == nuisance[:len(power)]
+    assert sum(nuisance) == int(mapo2.sum())
+    assert sum(power) < sum(c.n for c in counts
+                            if c.name == "greedy.area_columns")
 
 
 def test_lines_chunks_are_the_cat1_lines_over_64(sessions):
